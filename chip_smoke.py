@@ -14,6 +14,18 @@ Phases (any failure raises and exits non-zero):
      b1=1000, b2=10000), with per-stage seconds and peak device memory.
      Sample 0's raw table must equal the native single-thread counter's
      and the level-1 component count the native BFS's.
+  psort. The blocked bitonic sort kernel against its plain PyTorch
+     version, each run through the public sort_arrays with its launches
+     counted from 0: (a) the raw k-mer keys of stress sample 0 (its
+     stream3 extraction, padded with SENTINEL to 2^25); (b) 2^27 keys,
+     45% random below 2^62, 45% from 1024 values, 10% SENTINEL, the run
+     the JSON line reports.  Keys and the int32 index payload equal, keys
+     equal torch.sort's; kernel, plain and torch.sort milliseconds.
+  batch route. Stress sample 0 written as BINQ, counted (a) by
+     count_reads_files (the Python reader's route), (b) through
+     read_batches into add_batch with a forced host spill, (c) through
+     the packed batches into add_packed_batch: each equals the native
+     counter's table.
   4. The pipeline on the GPU against the same pipeline on the CPU (plain
      PyTorch versions) at 3 samples of 200 kbp: every field equal.
 
@@ -29,12 +41,15 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 
 K = 31
 READ_LEN = 150
+PSORT_N = 1 << 27       # keys of the psort phase's part (b)
+SPILL = 1 << 20         # spill threshold of the batch route's part (b)
 
 
 def log(msg: str) -> None:
@@ -161,7 +176,8 @@ def native_components(lib, keys, counts) -> int:
 
 
 def phase_pipeline(dev, workdir: Path):
-    """Phase 3: the full pipeline at CAMI scale; returns launches."""
+    """Phase 3: the full pipeline at CAMI scale; returns the kernel's
+    launches, sample 0's parsed (codes, lengths) and its native table."""
     import torch
 
     from metafast_tpu_torch import api
@@ -249,7 +265,144 @@ def phase_pipeline(dev, workdir: Path):
                            f"BFS {n_native}")
     log(f"check level-1 components == native bfs_components_baseline: "
         f"{n_level1} over {gkeys.numel()} keys")
-    return launches
+    return launches, (codes, lengths), (nkeys, ncounts)
+
+
+def psort_check(label: str, arrs, log_block: int, got) -> dict:
+    """The kernel's result ``got`` against the plain version and
+    torch.sort, then the three timed; raises on any difference."""
+    import torch
+
+    from metafast_tpu_torch.ops import psort
+
+    keys, idx = arrs
+    want = psort.sort_arrays_blocked_torch(arrs, log_block)
+    err = float((got[0].double() - want[0].double()).abs().max())
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise RuntimeError(f"psort {label}: kernel != plain "
+                           f"(max_abs_err={err})")
+    if not torch.equal(got[0], torch.sort(keys).values):
+        raise RuntimeError(f"psort {label}: keys != torch.sort")
+    del got, want
+
+    def sort_fallback():
+        s = torch.sort(keys, stable=True)
+        return s.values, idx[s.indices]
+
+    ms = cuda_ms(lambda: psort.sort_arrays_blocked(arrs, log_block), 5)
+    plain_ms = cuda_ms(lambda: psort.sort_arrays_blocked_torch(arrs,
+                                                               log_block), 1)
+    sort_ms = cuda_ms(sort_fallback, 5)
+    n = keys.numel()
+    log(f"psort {label} n={n} log_block={log_block} equal=True "
+        f"max_abs_err={err} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"torch_sort_ms={sort_ms:.4f} kernel_keys_per_s={n / ms * 1e3:.4e}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def phase_psort(dev, sample0) -> dict:
+    """Phase psort: the kernel through the public sort_arrays on the raw
+    keys of stress sample 0 and on 2^27 heavy-tie keys, each run counted
+    from 0; the JSON line reports the 2^27 run."""
+    import torch
+
+    from metafast_tpu_torch.core.bitpack import SENTINEL
+    from metafast_tpu_torch.ops import psort
+    from metafast_tpu_torch.ops import stream_extract as SE
+
+    def counted_sort(arrs):
+        torch.cuda.synchronize()
+        psort.sort_arrays_blocked.launches = 0
+        got = psort.sort_arrays(arrs)
+        torch.cuda.synchronize()
+        launches = psort.sort_arrays_blocked.launches
+        if launches < 1:
+            raise RuntimeError("sort_arrays did not launch the psort kernel")
+        return got, launches
+
+    codes, lengths = sample0
+    raw = SE.stream_extract(*SE.to_device(SE.build_stream3(codes, lengths, K),
+                                          dev), K).reshape(-1)
+    n = 1 << (raw.numel() - 1).bit_length()
+    keys = torch.cat([raw, torch.full((n - raw.numel(),), SENTINEL,
+                                      dtype=torch.int64, device=dev)])
+    arrs = (keys, torch.arange(n, dtype=torch.int32, device=dev))
+    del raw
+    got, _ = counted_sort(arrs)
+    psort_check(f"(a) sample0 raw keys ({int((keys != SENTINEL).sum())} "
+                "live)", arrs, psort.LOG_BLOCK, got)
+    del arrs, keys, got
+
+    t0 = time.perf_counter()
+    n = PSORT_N
+    rng = np.random.default_rng(3)
+    pool = rng.integers(0, 1 << 62, 1 << 10)
+    r = rng.random(n, dtype=np.float32)
+    keys = np.where(r < 0.45, rng.integers(0, 1 << 62, n),
+                    pool[rng.integers(0, 1 << 10, n)])
+    keys[r >= 0.9] = SENTINEL
+    arrs = (torch.from_numpy(keys).to(dev),
+            torch.arange(n, dtype=torch.int32, device=dev))
+    del keys, r
+    log(f"psort (b) data n={n} setup_s={time.perf_counter() - t0:.2f}")
+    got, launches = counted_sort(arrs)
+    result = psort_check("(b) 2^27 heavy ties", arrs, psort.LOG_BLOCK, got)
+    result["launches"] = launches
+    return result
+
+
+def phase_batch_route(dev, sample0, native, workdir: Path) -> None:
+    """Phase batch route: the BINQ sample through the Python reader's
+    route, with a forced spill, and the packed batch route."""
+    from metafast_tpu_torch import api
+    from metafast_tpu_torch.ops.count import KmerCounter, SpilledError
+    from metafast_tpu_torch.utils.device import synchronize
+
+    nkeys, ncounts = native
+    codes, lengths = sample0
+    binq = api.write_binq(workdir / "stress_0.binq", codes, lengths)
+
+    def same(label, keys, counts):
+        if not (np.array_equal(keys, nkeys)
+                and np.array_equal(counts, ncounts)):
+            raise RuntimeError(f"batch route {label}: table != native "
+                               "count_kmers_baseline")
+
+    t0 = time.perf_counter()
+    keys, counts, stats = api.count_reads_files([binq], K, dev)
+    synchronize(dev)
+    ta = time.perf_counter() - t0
+    same("(a) count_reads_files", keys.cpu().numpy(), counts.cpu().numpy())
+    if (stats["reads"], stats["skipped"]) != (len(lengths), 0):
+        raise RuntimeError(f"batch route (a): stats {stats}")
+
+    t0 = time.perf_counter()
+    counter = KmerCounter(K, dev, chunk=1 << 24, spill=SPILL)
+    for batch in api.read_batches(binq, batch_reads=1 << 16):
+        counter.add_batch(batch.codes, batch.lengths)
+    try:
+        counter.finish_device()
+    except SpilledError:
+        pass
+    else:
+        raise RuntimeError("batch route (b): finish_device did not raise "
+                           "SpilledError")
+    same("(b) add_batch with spill", *counter.finish())
+    tb = time.perf_counter() - t0
+    spills = counter.spill_events
+    if spills < 1:
+        raise RuntimeError("batch route (b): no spill event")
+
+    t0 = time.perf_counter()
+    counter = KmerCounter(K, dev)
+    for packed, ls, L in api.packed_batches(codes, lengths):
+        counter.add_packed_batch(packed, ls, L)
+    same("(c) add_packed_batch", *counter.finish())
+    tc = time.perf_counter() - t0
+    log(f"batch route sample0 BINQ reads={stats['reads']} keys={len(nkeys)} "
+        f"equal native: (a) count_reads_files_s={ta:.3f} "
+        f"(b) add_batch_spill_s={tb:.3f} spill_events={spills} "
+        f"(c) add_packed_batch_s={tc:.3f}")
 
 
 def phase_gpu_vs_cpu(workdir: Path) -> None:
@@ -299,16 +452,22 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
+    # one nvcc per kernel source, all started together, beside the g++
+    # build of the native library
     t0 = time.perf_counter()
-    load("stream_extract")
-    t1 = time.perf_counter()
-    native_library()
-    log(f"build: stream_extract.cu nvcc_s={t1 - t0:.2f} "
-        f"native_lib_s={time.perf_counter() - t1:.2f}")
+    with ThreadPoolExecutor(3) as pool:
+        futs = [pool.submit(load, "stream_extract"),
+                pool.submit(load, "psort"), pool.submit(native_library)]
+        for f in futs:
+            f.result()
+    log(f"build: stream_extract.cu + psort.cu (nvcc) + native lib "
+        f"build_s={time.perf_counter() - t0:.2f}")
 
     kern = phase_kernel(dev)
     with tempfile.TemporaryDirectory() as td:
-        launches = phase_pipeline(dev, Path(td))
+        launches, sample0, native = phase_pipeline(dev, Path(td))
+        sort = phase_psort(dev, sample0)
+        phase_batch_route(dev, sample0, native, Path(td))
     with tempfile.TemporaryDirectory() as td:
         phase_gpu_vs_cpu(Path(td))
 
@@ -322,6 +481,15 @@ def main() -> int:
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"],
         "plain_ms": kern["plain_ms"],
+    }, {
+        "name": "psort",
+        "route": "cuda",
+        "source": "metafast_tpu_torch/csrc/psort.cu",
+        "replaces": "metafast_tpu/ops/psort.py:99 (_tile_kernel)",
+        "launches": sort["launches"],
+        "max_abs_err": sort["max_abs_err"],
+        "ms": sort["ms"],
+        "plain_ms": sort["plain_ms"],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

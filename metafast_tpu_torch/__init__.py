@@ -3,9 +3,13 @@
 A second package beside the JAX one (``metafast_tpu``), with the same
 module names so each piece has an obvious counterpart:
 
-  api.count_reads_files     per-sample canonical k-mer counting
+  api.count_reads_files     per-sample canonical k-mer counting (FASTA,
+                            FASTQ, BINQ)
   ops.stream_extract        stream extraction (hand CUDA kernel, csrc/)
-  ops.count.KmerCounter     sort + run-length reduce + saturating merge
+  core.extract              padded read-batch extraction (torch ops)
+  ops.count.KmerCounter     sort + run-length reduce + saturating merge,
+                            host spill
+  ops.psort                 blocked bitonic sort (hand CUDA kernel, csrc/)
   graph.lookup / dbg        sorted-table lookups, de Bruijn neighbor tables
   graph.contigs             simple-path contigs (Wyllie pointer doubling)
   graph.components          size-window component splitting (hooking)

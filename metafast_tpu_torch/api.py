@@ -1,10 +1,15 @@
-"""Read-file counting: native parse -> stream3 layout -> device counter.
+"""Read-file counting: parse -> extraction -> device counter.
 
-Counterpart of metafast_tpu/api.py count_reads_files (:295-434).  Files
-are parsed by the JAX package's jax-free native parser; the concatenated
-codes are cut into slabs of at most SLAB_CODES codes, packed into the
-compact 3-stream layout on the host, uploaded through pinned memory and
-counted on the device.
+Counterpart of metafast_tpu/api.py count_reads_files (:295-434).  Two
+routes, per file:
+
+  * FASTA / FASTQ (optionally .gz / .bz2): the JAX package's jax-free
+    native parser; the concatenated codes are cut into slabs of at most
+    SLAB_CODES codes, packed into the compact 3-stream layout on the host,
+    uploaded through pinned memory and extracted by the hand kernel.
+  * anything the native parser does not take (BINQ): the Python reader's
+    padded read batches (metafast_tpu.io.reads.read_batches) into
+    ``KmerCounter.add_batch``.
 """
 
 from __future__ import annotations
@@ -13,8 +18,9 @@ import numpy as np
 import torch
 
 from metafast_tpu.io import native_reads
+from metafast_tpu.io import reads as readsio
 
-from .ops.count import KmerCounter
+from .ops.count import KmerCounter, card_spill, device_table
 from .ops.stream_extract import build_stream3, to_device
 from .utils.device import resolve_device
 from .utils.native import native_library
@@ -49,14 +55,53 @@ def count_codes(counter: KmerCounter, codes: np.ndarray,
             progress(lengths_s)
 
 
+def read_batches(path: str, batch_reads: int = 1 << 19, min_len: int = 0):
+    """Padded read batches of one file by the Python reader, which takes
+    every input format (BINQ included): objects with codes [B, L] uint8,
+    lengths [B] int32 and the running n_total / n_skipped, for
+    ``KmerCounter.add_batch``."""
+    return readsio.read_batches(path, batch_reads=batch_reads,
+                                min_len=min_len)
+
+
+def packed_batches(codes: np.ndarray, lengths: np.ndarray,
+                   batch_reads: int = 1 << 19):
+    """Concatenated read codes as 2-bit packed batches: (packed [B, L//4]
+    uint8, lengths [B] int32, L), for ``KmerCounter.add_packed_batch``."""
+    return native_reads.to_packed_batches(codes, lengths, batch_reads)
+
+
+def write_binq(path, codes: np.ndarray, lengths: np.ndarray,
+               phred: np.ndarray | None = None) -> str:
+    """Reads as a BINQ file: per read a big-endian int32 length, then one
+    byte per base, phred << 2 | code (A=0, G=1, C=2, T=3).  ``phred`` is
+    per base, 30 where not given; the reader drops a read that holds a
+    phred-0 base."""
+    codes = np.asarray(codes, dtype=np.uint8)
+    lengths = np.asarray(lengths, dtype=np.int64)
+    if phred is None:
+        phred = np.full(len(codes), 30, dtype=np.uint8)
+    rec = lengths + 4
+    starts = np.cumsum(rec) - rec
+    buf = np.empty(int(rec.sum()), dtype=np.uint8)
+    body = np.ones(len(buf), dtype=bool)
+    hdr = lengths.astype(">i4").view(np.uint8).reshape(len(lengths), 4)
+    for j in range(4):
+        buf[starts + j] = hdr[:, j]
+        body[starts + j] = False
+    buf[body] = (np.asarray(phred, dtype=np.uint8) << 2) | codes
+    buf.tofile(str(path))
+    return str(path)
+
+
 def parse_reads(path: str, min_len: int = 0):
     """(codes uint8, lengths int32, n_total, n_skipped) of one FASTA or
-    FASTQ file (optionally .gz / .bz2), reads shorter than min_len
-    skipped."""
+    FASTQ file (optionally .gz / .bz2) by the native parser, reads shorter
+    than min_len skipped; None for a format it does not take (BINQ)."""
     native_library()
     parsed = native_reads.parse_file(path)
     if parsed is None:
-        raise ValueError(f"{path}: only FASTA and FASTQ input is supported")
+        return None
     codes, lengths, skipped = parsed
     total = len(lengths) + skipped
     if min_len > 0 and len(lengths):
@@ -68,34 +113,55 @@ def parse_reads(path: str, min_len: int = 0):
 
 def count_reads_files(files: list[str], k: int,
                       device: str | torch.device = "cuda",
-                      min_len: int = 0, progress=None):
+                      min_len: int = 0, batch_reads: int = 1 << 19,
+                      progress=None):
     """Canonical k-mer counts over read files (one sample).
 
     Parity: IOUtils.loadReads (src/io/IOUtils.java:742-803) -- all files
     accumulate into one table; reads shorter than min_len or containing
-    invalid characters are skipped; counts saturate at 32767.
+    invalid characters are skipped; counts saturate at 32767.  Files of the
+    Python reader's route go in batches of ``batch_reads`` reads; as in the
+    JAX package, their stats come from the reader's last batch, which does
+    not count reads shorter than min_len as skipped.
 
-    ``progress``, if given, is called per slab with one dict (keys: path,
-    reads, kmers).  Returns (keys int64 ascending, counts int32) on
-    ``device`` and a stats dict.
+    ``progress``, if given, is called per slab or batch with one dict
+    (keys: path, reads, kmers).  Returns (keys int64 ascending, counts
+    int32) on ``device`` and a stats dict.  The counter spills at the
+    card's own threshold (``card_spill``); a table that spilled is merged
+    on the host and uploaded once.
     """
-    counter = KmerCounter(k, resolve_device(device))
+    native_library()
+    device = resolve_device(device)
+    counter = KmerCounter(k, device, spill=card_spill(device))
     n_reads = n_skipped = reads_done = kmers_done = 0
-    for path in files:
-        codes, lengths, total, skipped = parse_reads(str(path), min_len)
-        n_reads += total
-        n_skipped += skipped
 
-        def _report(ls, path=path):
-            nonlocal reads_done, kmers_done
-            reads_done += len(ls)
-            kmers_done += int(np.maximum(ls.astype(np.int64) - (k - 1),
-                                         0).sum())
-            progress(dict(path=path, reads=reads_done, kmers=kmers_done))
+    def report(path, ls):
+        nonlocal reads_done, kmers_done
+        if progress is None:
+            return
+        reads_done += len(ls)
+        kmers_done += int(np.maximum(ls.astype(np.int64) - (k - 1),
+                                     0).sum())
+        progress(dict(path=path, reads=reads_done, kmers=kmers_done))
 
-        count_codes(counter, codes, lengths,
-                    _report if progress is not None else None)
-    keys, counts = counter.finish_device()
+    for path in map(str, files):
+        parsed = parse_reads(path, min_len)
+        if parsed is not None:
+            codes, lengths, total, skipped = parsed
+            n_reads += total
+            n_skipped += skipped
+            count_codes(counter, codes, lengths,
+                        lambda ls, path=path: report(path, ls))
+            continue
+        last = None
+        for batch in read_batches(path, batch_reads, min_len):
+            counter.add_batch(batch.codes, batch.lengths)
+            report(path, batch.lengths)
+            last = batch
+        if last is not None:
+            n_reads += last.n_total
+            n_skipped += last.n_skipped
+    keys, counts = device_table(counter)
     stats = dict(reads=n_reads, skipped=n_skipped,
                  kmers_seen=counter.total_kmers_seen, unique=len(keys))
     return keys, counts, stats

@@ -24,7 +24,7 @@ def main(argv: list[str] | None = None) -> int:
         description="Distance matrix of metagenomic samples (matrix-builder)")
     p.add_argument("-k", type=int, default=31, help="k-mer size (1..31)")
     p.add_argument("-i", "--reads", nargs="+", required=True,
-                   help="one FASTA/FASTQ file per sample")
+                   help="one FASTA/FASTQ/BINQ file per sample")
     p.add_argument("-w", "--work-dir", default="workDir",
                    help="output directory")
     p.add_argument("--device", default="cuda", help="'cuda' or 'cpu'")

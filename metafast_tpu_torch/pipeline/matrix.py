@@ -27,7 +27,7 @@ from metafast_tpu.io.reads import sample_name
 from .. import api
 from ..graph import components as comp_mod
 from ..graph import contigs as contigs_mod
-from ..ops.count import KmerCounter
+from ..ops.count import KmerCounter, card_spill, device_table
 from ..state import HostComponent, components_to_numpy
 from ..utils.device import resolve_device
 
@@ -60,13 +60,14 @@ def count_contig_kmers(contig_seqs: list[str], k: int,
     (src/tools/ComponentCutterMain.java:84).  The contigs go through the
     same 3-stream layout and kernel as reads.
     """
-    counter = KmerCounter(k, resolve_device(device))
+    device = resolve_device(device)
+    counter = KmerCounter(k, device, spill=card_spill(device))
     kept = [s for s in contig_seqs if len(s) >= min_len]
     if kept:
         lengths = np.array([len(s) for s in kept], dtype=np.int32)
         codes = _LUT[np.frombuffer("".join(kept).encode(), dtype=np.uint8)]
         api.count_codes(counter, codes, lengths)
-    return counter.finish_device()
+    return device_table(counter)
 
 
 def feature_vectors(components: list[comp_mod.Component],

@@ -12,8 +12,13 @@ import numpy as np
 import pytest
 import torch
 
+from metafast_tpu.io.native_reads import pack_2bit
+from metafast_tpu_torch.core.bitpack import SENTINEL
+from metafast_tpu_torch.ops import psort
 from metafast_tpu_torch.ops import stream_extract as TSE
-from metafast_tpu_torch.ops.count import KmerCounter
+from metafast_tpu_torch.ops.count import (MERGE_CHUNK_BYTES,
+                                          MERGE_TABLE_BYTES, KmerCounter,
+                                          card_spill)
 from metafast_tpu_torch.pipeline import matrix_pipeline
 from torch_helpers import cuda_device, write_samples  # noqa: F401
 
@@ -75,6 +80,92 @@ def test_counter_gpu_matches_cpu(k, cuda_device):
         tables.append(c.finish())
     assert np.array_equal(tables[0][0], tables[1][0])
     assert np.array_equal(tables[0][1], tables[1][1])
+
+
+@pytest.mark.parametrize("log_block", [17, 12])
+@pytest.mark.parametrize("logn", [17, 18, 20])
+def test_psort_kernel_matches_plain(logn, log_block, cuda_device):
+    """Duplicates, sentinels and two payloads; keys, payload order and the
+    tie order equal the plain version's, on the card and on the CPU."""
+    rng = np.random.default_rng(logn + log_block)
+    n = 1 << logn
+    keys = np.where(rng.random(n) < 0.5, rng.integers(0, 1 << 62, n),
+                    rng.integers(0, 1 << 10, n))
+    keys[rng.random(n) < 0.1] = SENTINEL
+    arrs = (torch.from_numpy(keys.astype(np.int64)).to(cuda_device),
+            torch.arange(n, dtype=torch.int32, device=cuda_device),
+            torch.from_numpy(rng.random(n)).to(cuda_device))
+    before = psort.sort_arrays_blocked.launches
+    got = psort.sort_arrays_blocked(arrs, log_block=log_block)
+    torch.cuda.synchronize()
+    assert psort.sort_arrays_blocked.launches == before + 1
+    want = psort.sort_arrays_blocked_torch(arrs, log_block=log_block)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and torch.equal(g, w)
+    assert torch.equal(got[0], torch.sort(arrs[0]).values)
+    if logn == 17:
+        cpu = psort.sort_arrays_blocked_torch([a.cpu() for a in arrs],
+                                              log_block=log_block)
+        for g, c in zip(got, cpu):
+            assert torch.equal(g.cpu(), c)
+
+
+def test_psort_sort_arrays_takes_the_kernel(cuda_device):
+    keys = torch.randint(0, 1 << 40, (1 << 17,), device=cuda_device)
+    before = psort.sort_arrays_blocked.launches
+    got, = psort.sort_arrays((keys,))
+    assert psort.sort_arrays_blocked.launches == before + 1
+    assert torch.equal(got, torch.sort(keys).values)
+
+
+def test_psort_rejects_strided_input(cuda_device):
+    keys = torch.zeros(1 << 18, dtype=torch.int64, device=cuda_device)[::2]
+    with pytest.raises(ValueError):
+        psort.sort_arrays_blocked((keys,))
+
+
+@pytest.mark.parametrize("k", [11, 31])
+def test_batch_routes_gpu_match_cpu(k, cuda_device):
+    rng = np.random.default_rng(k)
+    codes = rng.integers(0, 4, (500, 256), dtype=np.uint8)
+    lengths = rng.integers(k - 1, 257, 500).astype(np.int32)
+    packed = pack_2bit(codes)
+    tables = []
+    for dev in (cuda_device, torch.device("cpu")):
+        counter = KmerCounter(k, dev, chunk=50_000)
+        for _ in range(2):
+            counter.add_batch(codes, lengths)
+            counter.add_packed_batch(packed, lengths, 256)
+        tables.append(counter.finish())
+    assert np.array_equal(tables[0][0], tables[1][0])
+    assert np.array_equal(tables[0][1], tables[1][1])
+    assert tables[0][1].min() >= 4      # each window seen in all 4 adds
+
+
+def test_spill_on_gpu_equals_no_spill(cuda_device):
+    codes, lengths = _reads(17, seed=3)
+    results = []
+    for spill in (None, 2000):
+        c = KmerCounter(17, cuda_device, chunk=30_000, spill=spill)
+        for r0 in range(0, len(lengths), 500):
+            ls = lengths[r0:r0 + 500]
+            off = int(lengths[:r0].sum())
+            cs = codes[off:off + int(ls.sum())]
+            c.add_stream3_device(*_inputs(cs, ls, 17, "stream3",
+                                          cuda_device), ls)
+        results.append((c.spill_events, c.finish()))
+    assert results[0][0] == 0 and results[1][0] >= 2
+    assert np.array_equal(results[0][1][0], results[1][1][0])
+    assert np.array_equal(results[0][1][1], results[1][1][1])
+
+
+def test_card_spill_on_the_card(cuda_device):
+    """The main path's threshold on this card: at least one chunk, and
+    unless it is that floor, a merge at it peaks within half the card."""
+    spill = card_spill(cuda_device)
+    total = torch.cuda.get_device_properties(cuda_device).total_memory
+    peak = MERGE_TABLE_BYTES * spill + MERGE_CHUNK_BYTES * (1 << 27)
+    assert spill == 1 << 27 or (spill > 1 << 27 and peak <= total // 2)
 
 
 def test_pipeline_gpu_matches_cpu(tmp_path, cuda_device):

@@ -6,6 +6,7 @@ must be equal.  Two subprocesses show that the port needs no JAX and
 that chip_smoke.py has no CPU fallback.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -15,6 +16,7 @@ import numpy as np
 import pytest
 
 from metafast_tpu.pipeline import matrix_pipeline as jax_pipeline
+from metafast_tpu_torch.api import write_binq
 from metafast_tpu_torch.pipeline import matrix_pipeline
 from torch_helpers import write_samples
 
@@ -66,11 +68,21 @@ _NO_JAX = """
 import sys
 sys.modules["jax"] = None          # any import of jax now fails
 import numpy as np
+import torch
+from metafast_tpu_torch import api
+from metafast_tpu_torch.core import extract
+from metafast_tpu_torch.ops import psort
 from metafast_tpu_torch.pipeline import matrix_pipeline
-files = sys.argv[1:]
+binq, files = sys.argv[1], sys.argv[2:]
 res = matrix_pipeline(files, k=21, b=1, l=60, b1=20, b2=5000, device="cpu")
 assert res.matrix.shape == (len(files), len(files))
 assert len(res.components) >= 1
+keys, counts, stats = api.count_reads_files([binq], 21, "cpu")
+assert stats["reads"] > 0 and len(keys) > 0
+sorted_keys, = psort.sort_arrays_blocked((keys[:1024].flip(0),), log_block=10)
+assert torch.equal(sorted_keys, keys[:1024])
+assert extract.unpack_2bit(torch.tensor([[228]], dtype=torch.uint8),
+                           4).tolist() == [[0, 1, 2, 3]]
 assert not any(m == "jax" or m.startswith("jax.") for m, v in
                sys.modules.items() if v is not None)
 print("ok", len(res.components))
@@ -79,11 +91,28 @@ print("ok", len(res.components))
 
 def test_port_runs_without_jax(tmp_path):
     files = write_samples(tmp_path, 2, 3000, 1000, 8, read_len=100, seed=5)
-    proc = subprocess.run([sys.executable, "-c", _NO_JAX, *files],
+    rng = np.random.default_rng(5)
+    binq = write_binq(tmp_path / "reads.binq",
+                      rng.integers(0, 4, 100 * 60, dtype=np.uint8),
+                      np.full(100, 60, np.int32))
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX, binq, *files],
                           cwd=REPO, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("ok")
+
+
+def test_chip_smoke_imports_no_jax_package():
+    """chip_smoke.py imports the port only: neither jax nor metafast_tpu,
+    at module level or inside its phases."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    modules = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+               for a in n.names]
+    modules += [n.module for n in ast.walk(tree)
+                if isinstance(n, ast.ImportFrom)]
+    assert "metafast_tpu_torch.api" in modules
+    assert not [m for m in modules
+                if m.split(".")[0] in ("jax", "metafast_tpu")]
 
 
 def test_chip_smoke_fails_without_cuda():
