@@ -14,6 +14,13 @@ Phases (any failure raises and exits non-zero):
      b1=1000, b2=10000), with per-stage seconds and peak device memory.
      Sample 0's raw table must equal the native single-thread counter's
      and the level-1 component count the native BFS's.
+  cli. The same eight files through the port's launcher, ``-t
+     matrix-builder --device cuda --finish dist-matrix-calculator``
+     in-process, with its wall and per-step seconds, peak device memory
+     and the extraction kernel's launches counted from 0.  Its matrix and
+     components.bin equal phase 3's written by the same writers, and
+     sample 0's .kmers.bin the native table at count > 1.  A rerun with
+     ``-c`` must skip every step and launch nothing.
   psort. The blocked bitonic sort kernel against its plain PyTorch
      version, each run through the public sort_arrays with its launches
      counted from 0: (a) the raw k-mer keys of stress sample 0 (its
@@ -37,6 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -265,7 +273,85 @@ def phase_pipeline(dev, workdir: Path):
                            f"BFS {n_native}")
     log(f"check level-1 components == native bfs_components_baseline: "
         f"{n_level1} over {gkeys.numel()} keys")
-    return launches, (codes, lengths), (nkeys, ncounts)
+    return launches, files, res, (codes, lengths), (nkeys, ncounts)
+
+
+CLI_STEPS = ["kmer-counter-many", "seq-builder-many", "component-cutter",
+             "features-calculator", "dist-matrix-calculator"]
+
+
+def phase_cli(dev, files, res, native, workdir: Path) -> None:
+    """Phase cli: matrix-builder through the port's launcher on the phase 3
+    files, up to dist-matrix-calculator; its files against phase 3's
+    result and the native table; then a --continue rerun that must skip
+    every step and launch nothing."""
+    import torch
+
+    from metafast_tpu_torch import cli
+    from metafast_tpu_torch.io import binfmt, textfmt
+    from metafast_tpu_torch.ops import stream_extract as SE
+    from metafast_tpu_torch.utils.device import synchronize
+
+    wd = workdir / "cli"
+    args = ["-t", "matrix-builder", "-k", str(K), "-i", *files,
+            "-b", "1", "-l", "100", "-b1", "1000", "-b2", "10000",
+            "-w", str(wd), "--device", "cuda",
+            "--finish", "dist-matrix-calculator"]
+
+    def run(extra):
+        logged = (wd / "log").read_text() if (wd / "log").exists() else ""
+        synchronize(dev)
+        torch.cuda.reset_peak_memory_stats()
+        SE.stream_extract.launches = 0
+        t0 = time.perf_counter()
+        rc = cli.main(args + extra)
+        synchronize(dev)
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise RuntimeError(f"cli {' '.join(extra)} exited {rc}")
+        return (wall, SE.stream_extract.launches,
+                torch.cuda.max_memory_allocated() / 1e9,
+                (wd / "log").read_text()[len(logged):])
+
+    wall, launches, peak_gb, text = run([])
+    step_s: dict[str, float] = {}
+    for name, s in re.findall(r"\[([\w-]+)\] done in ([\d.]+)s", text):
+        step_s[name] = round(step_s.get(name, 0.0) + float(s), 3)
+    log(f"cli wall_s={wall:.3f} step_s={json.dumps(step_s)} "
+        f"peak_device_GB={peak_gb:.3f} launches={launches}")
+    if launches < 1:
+        raise RuntimeError("the CLI did not launch the extraction kernel")
+
+    with tempfile.TemporaryDirectory() as td:
+        want_mat = Path(td) / "matrix.txt"
+        textfmt.write_dist_matrix(str(want_mat), res.matrix, res.names)
+        want_comps = Path(td) / "components.bin"
+        binfmt.write_components_bin(
+            str(want_comps), [(c.kmers, c.weight) for c in res.components])
+        (got_mat,) = (wd / "matrices").glob("dist_matrix_*_original_order.txt")
+        if got_mat.read_bytes() != want_mat.read_bytes():
+            raise RuntimeError("cli matrix != phase 3 matrix")
+        if ((wd / "component-cutter" / "components.bin").read_bytes()
+                != want_comps.read_bytes()):
+            raise RuntimeError("cli components.bin != phase 3 components")
+    nkeys, ncounts = native
+    good = ncounts > 1
+    keys, counts = binfmt.read_kmers_bin(
+        str(wd / "kmer-counter-many" / "kmers" / "stress_0.kmers.bin"))
+    if not (np.array_equal(keys, nkeys[good])
+            and np.array_equal(counts, ncounts[good])):
+        raise RuntimeError("cli stress_0.kmers.bin != native table, count > 1")
+    log(f"check cli matrix and components.bin == phase 3 "
+        f"({len(res.components)} components), stress_0.kmers.bin == native "
+        f"count > 1 ({len(keys)} keys)")
+
+    wall_c, launches_c, _, text = run(["-c"])
+    skipped = re.findall(r"\[([\w-]+)\] up to date, skipped", text)
+    ran = re.findall(r"\[([\w-]+)\] started", text)
+    log(f"cli -c wall_s={wall_c:.3f} skipped={skipped} launches={launches_c}")
+    if skipped != CLI_STEPS or ran != ["matrix-builder"] or launches_c:
+        raise RuntimeError(f"cli -c: skipped {skipped}, started {ran}, "
+                           f"{launches_c} launches")
 
 
 def psort_check(label: str, arrs, log_block: int, got) -> dict:
@@ -465,7 +551,9 @@ def main() -> int:
 
     kern = phase_kernel(dev)
     with tempfile.TemporaryDirectory() as td:
-        launches, sample0, native = phase_pipeline(dev, Path(td))
+        launches, files, res, sample0, native = phase_pipeline(dev, Path(td))
+        phase_cli(dev, files, res, native, Path(td))
+        del res
         sort = phase_psort(dev, sample0)
         phase_batch_route(dev, sample0, native, Path(td))
     with tempfile.TemporaryDirectory() as td:

@@ -1,4 +1,4 @@
-"""metafast-tpu on PyTorch: the default matrix-builder pipeline on a CUDA GPU.
+"""metafast-tpu on PyTorch: the matrix-builder pipeline and tools on a CUDA GPU.
 
 A second package beside the JAX one (``metafast_tpu``), with the same
 module names so each piece has an obvious counterpart:
@@ -14,7 +14,9 @@ module names so each piece has an obvious counterpart:
   graph.contigs             simple-path contigs (Wyllie pointer doubling)
   graph.components          size-window component splitting (hooking)
   pipeline.matrix           features + Bray-Curtis, the whole pipeline
-  cli                       ``python -m metafast_tpu_torch.cli``
+  io                        the shared file formats (the JAX package's)
+  tools                     step framework and the ported tools
+  cli                       ``python -m metafast_tpu_torch.cli -t <tool>``
 
 Keys are int64 (k <= 31 keeps them below 2**62) with INT64_MAX as the
 "no k-mer" sentinel.  Every public entry takes an explicit ``device``;

@@ -1,4 +1,5 @@
-"""Read-file counting: parse -> extraction -> device counter.
+"""Read-file counting (parse -> extraction -> device counter) and k-mer
+file loading.
 
 Counterpart of metafast_tpu/api.py count_reads_files (:295-434).  Two
 routes, per file:
@@ -17,10 +18,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from metafast_tpu.io import native_reads
+from metafast_tpu.io import binfmt, native_reads
 from metafast_tpu.io import reads as readsio
 
-from .ops.count import KmerCounter, card_spill, device_table
+from .ops.count import SATURATE, KmerCounter, card_spill, device_table
 from .ops.stream_extract import build_stream3, to_device
 from .utils.device import resolve_device
 from .utils.native import native_library
@@ -165,3 +166,34 @@ def count_reads_files(files: list[str], k: int,
     stats = dict(reads=n_reads, skipped=n_skipped,
                  kmers_seen=counter.total_kmers_seen, unique=len(keys))
     return keys, counts, stats
+
+
+def load_kmers_bin(files: list[str], threshold: int,
+                   device: str | torch.device = "cuda"):
+    """Load and merge k-mer binary files, keeping records with count >
+    threshold: (int64 keys ascending, int32 counts) on ``device``.
+
+    Counterpart of metafast_tpu/api.py load_kmers_bin (:437-461); parity:
+    IOUtils.loadKmers (src/io/IOUtils.java:369-401): the per-record filter
+    applies before the merge, and merged counts saturate at 32767.  As in
+    the JAX package, one file is only sorted (stably), not deduplicated,
+    and a merged key keeps its sum whatever its sign.
+    """
+    device = resolve_device(device)
+    keys, counts = [], []
+    for path in map(str, files):
+        k, c = binfmt.read_kmers_bin(path)
+        keep = c > threshold
+        keys.append(torch.from_numpy(k[keep]))
+        counts.append(torch.from_numpy(c[keep]))
+    keys = torch.cat(keys).to(device)
+    counts = torch.cat(counts).to(device)
+    keys, order = torch.sort(keys, stable=True)
+    counts = counts[order].to(torch.int64)
+    if len(files) > 1:
+        keys, runs = torch.unique_consecutive(keys, return_counts=True)
+        seg = torch.repeat_interleave(
+            torch.arange(keys.numel(), device=device), runs)
+        counts = torch.zeros(keys.numel(), dtype=torch.int64,
+                             device=device).index_add_(0, seg, counts)
+    return keys, counts.clamp_(max=SATURATE).to(torch.int32)

@@ -25,3 +25,13 @@ def find(table: torch.Tensor, queries: torch.Tensor):
     idx = torch.searchsorted(table, queries).clamp_(max=n - 1)
     found = (table[idx] == queries) & (queries != SENTINEL)
     return idx, found
+
+
+def values_at(table: torch.Tensor, values: torch.Tensor,
+              queries: torch.Tensor) -> torch.Tensor:
+    """values[i] where table[i] == query, else 0, per query (the first
+    match where the sorted table repeats a key)."""
+    if table.numel() == 0:
+        return torch.zeros_like(queries, dtype=values.dtype)
+    idx, found = find(table, queries)
+    return torch.where(found, values[idx], 0)

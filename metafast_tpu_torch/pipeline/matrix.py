@@ -66,8 +66,31 @@ def count_contig_kmers(contig_seqs: list[str], k: int,
     if kept:
         lengths = np.array([len(s) for s in kept], dtype=np.int32)
         codes = _LUT[np.frombuffer("".join(kept).encode(), dtype=np.uint8)]
-        api.count_codes(counter, codes, lengths)
+        api.count_codes(counter, _as_packed(codes, lengths), lengths)
     return device_table(counter)
+
+
+def _as_packed(codes: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    """``codes`` as the JAX package's 2-bit packer leaves them.
+
+    A sequence read back from a FASTA may hold a character outside ACGT
+    (code 255, e.g. N).  The JAX package counts such sequences through its
+    packed batches (native pack_batch, fastparse.cpp:284-307), whose
+    unmasked OR of the code makes that base and the rest of its aligned
+    group of 4 read as T.  The stream builder masks each code to 2 bits,
+    so the codes are brought to the packer's reading first.
+    """
+    bad = codes > 3
+    if not bad.any():
+        return codes
+    n = len(codes)
+    read_start = np.repeat(np.cumsum(lengths, dtype=np.int64) - lengths,
+                           lengths)
+    at = np.arange(n, dtype=np.int64)
+    group_start = at - (at - read_start) % 4
+    n_bad = np.concatenate([[0], np.cumsum(bad)])
+    hit = n_bad[at + 1] > n_bad[group_start]
+    return np.where(hit, np.uint8(3), codes)
 
 
 def feature_vectors(components: list[comp_mod.Component],

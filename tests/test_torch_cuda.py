@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from metafast_tpu.io.native_reads import pack_2bit
+from metafast_tpu_torch import cli
 from metafast_tpu_torch.core.bitpack import SENTINEL
 from metafast_tpu_torch.ops import psort
 from metafast_tpu_torch.ops import stream_extract as TSE
@@ -20,7 +21,7 @@ from metafast_tpu_torch.ops.count import (MERGE_CHUNK_BYTES,
                                           MERGE_TABLE_BYTES, KmerCounter,
                                           card_spill)
 from metafast_tpu_torch.pipeline import matrix_pipeline
-from torch_helpers import cuda_device, write_samples  # noqa: F401
+from torch_helpers import cuda_device, workdir_tree, write_samples  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 KS = [1, 11, 16, 17, 31]
@@ -166,6 +167,28 @@ def test_card_spill_on_the_card(cuda_device):
     total = torch.cuda.get_device_properties(cuda_device).total_memory
     peak = MERGE_TABLE_BYTES * spill + MERGE_CHUNK_BYTES * (1 << 27)
     assert spill == 1 << 27 or (spill > 1 << 27 and peak <= total // 2)
+
+
+def test_cli_gpu_matches_cpu(tmp_path, cuda_device):
+    """matrix-builder through the CLI on the card and on the CPU: the same
+    files, byte for byte; the card's run launches the extraction kernel."""
+    files = write_samples(tmp_path, 3, 30_000, 12_000, 12, seed=11)
+    trees = {}
+    for dev in ("cuda", "cpu"):
+        wd = tmp_path / dev
+        before = TSE.stream_extract.launches
+        assert cli.main(["-t", "matrix-builder", "-k", "31", "-i", *files,
+                         "-b1", "100", "-b2", "3000", "-w", str(wd),
+                         "--device", dev,
+                         "--finish", "dist-matrix-calculator"]) == 0
+        launched = TSE.stream_extract.launches - before
+        assert launched > 0 if dev == "cuda" else launched == 0
+        trees[dev] = workdir_tree(wd)
+    assert sorted(trees["cuda"]) == sorted(trees["cpu"])
+    assert "component-cutter/components.bin" in trees["cpu"]
+    assert "matrices/dist_matrix_<ts>_original_order.txt" in trees["cpu"]
+    for rel, data in trees["cpu"].items():
+        assert trees["cuda"][rel] == data, rel
 
 
 def test_pipeline_gpu_matches_cpu(tmp_path, cuda_device):

@@ -83,6 +83,22 @@ sorted_keys, = psort.sort_arrays_blocked((keys[:1024].flip(0),), log_block=10)
 assert torch.equal(sorted_keys, keys[:1024])
 assert extract.unpack_2bit(torch.tensor([[228]], dtype=torch.uint8),
                            4).tolist() == [[0, 1, 2, 3]]
+# the CLI's default tool and one tool of every other ported tool module
+from pathlib import Path
+from metafast_tpu_torch import cli
+wd = Path(files[0]).parent / "wd"
+assert cli.main(["-t", "matrix-builder", "-k", "21", "-i", *files, "-l", "60",
+                 "-b1", "20", "-b2", "5000", "-w", str(wd),
+                 "--device", "cpu"]) == 0
+assert list((wd / "matrices").glob("dist_matrix_*_original_order.txt"))
+kb = sorted(map(str, (wd / "kmer-counter-many" / "kmers").glob("*.kmers.bin")))
+comps = str(wd / "component-cutter" / "components.bin")
+for tool in (["unique-kmers", "-i", kb[0], "--filter-kmers", kb[1]],
+             ["kmers-samples-counter", "-i", *kb],
+             ["view", "-kf", kb[0], "-o", str(wd / "view.txt")],
+             ["comp2graph", "-cf", comps]):
+    assert cli.main(["-t", *tool, "-k", "21", "-w", str(wd / tool[0]),
+                     "--device", "cpu"]) == 0, tool[0]
 assert not any(m == "jax" or m.startswith("jax.") for m, v in
                sys.modules.items() if v is not None)
 print("ok", len(res.components))

@@ -1,5 +1,7 @@
 """Shared pieces of the tests of the PyTorch port (metafast_tpu_torch)."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -33,3 +35,21 @@ def write_samples(directory, n_samples, genome_len, shared_len, coverage,
                 fh.write(b">r%d\n%s\n" % (i, reads[i].tobytes()))
         files.append(str(path))
     return files
+
+
+_TS = re.compile(rb"\d{4}-\d{2}-\d{2}_\d{2}-\d{2}-\d{2}")
+
+
+def workdir_tree(wd):
+    """A CLI working directory as {relative path: bytes}, without the
+    logs, with run timestamps (in paths and contents) and the workdir's
+    own path (in contents) masked."""
+    out = {}
+    for p in sorted(wd.rglob("*")):
+        rel = p.relative_to(wd)
+        if p.is_dir() or rel.parts[0] in ("log", "logs"):
+            continue
+        key = _TS.sub(b"<ts>", str(rel).encode()).decode()
+        out[key] = _TS.sub(b"<ts>", p.read_bytes().replace(
+            str(wd).encode(), b"<wd>"))
+    return out
