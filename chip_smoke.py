@@ -22,12 +22,17 @@ Phases (any failure raises and exits non-zero):
      sample 0's .kmers.bin the native table at count > 1.  A rerun with
      ``-c`` must skip every step and launch nothing.
   psort. The blocked bitonic sort kernel against its plain PyTorch
-     version, each run through the public sort_arrays with its launches
-     counted from 0: (a) the raw k-mer keys of stress sample 0 (its
-     stream3 extraction, padded with SENTINEL to 2^25); (b) 2^27 keys,
+     version, each run with its launches counted from 0: through the
+     public sort_arrays (a) the raw k-mer keys of stress sample 0 (its
+     stream3 extraction, padded with SENTINEL to 2^25) and (b) 2^27 keys,
      45% random below 2^62, 45% from 1024 values, 10% SENTINEL, the run
-     the JSON line reports.  Keys and the int32 index payload equal, keys
-     equal torch.sort's; kernel, plain and torch.sort milliseconds.
+     the JSON line reports; (c) through sort_arrays_blocked, 2^22 such
+     keys at log_block 12, inside the kernel's tile.  Keys and the int32
+     index payload equal, keys equal torch.sort's; kernel, plain and
+     torch.sort + gather milliseconds beside the bound.  Then the pass
+     plan, nvcc's register report, every tile size / register group
+     width of the sweep at 2^27 (equal results, times) and the default's
+     device time split by pass kind (torch.profiler).
   batch route. Stress sample 0 written as BINQ, counted (a) by
      count_reads_files (the Python reader's route), (b) through
      read_batches into add_batch with a forced host spill, (c) through
@@ -36,8 +41,9 @@ Phases (any failure raises and exits non-zero):
   4. The pipeline on the GPU against the same pipeline on the CPU (plain
      PyTorch versions) at 3 samples of 200 kbp: every field equal.
 
-Prints one JSON line of kernel results, the card's name and power limit,
-and last {"ok": true, "device": {...}}.
+Prints one JSON line of kernel results (each with its bound: the bytes
+it must move over the H100's 3.35 TB/s), the card's name and power
+limit, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -101,6 +107,14 @@ def cuda_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
+
+
+def bound_ms(n_bytes: int) -> float:
+    """Least milliseconds to move n_bytes at the card's memory rate."""
+    return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
 def phase_kernel(dev):
     """Phase 2: kernel == plain version on the card."""
     import torch
@@ -109,7 +123,7 @@ def phase_kernel(dev):
     from metafast_tpu_torch.ops import stream_extract as SE
 
     rng = np.random.default_rng(1)
-    result = dict(max_abs_err=0, ms=None, plain_ms=None)
+    result = dict(max_abs_err=0, ms=None, plain_ms=None, bound_ms=None)
     for n_codes, k in ((SLAB_CODES, 31), (1 << 22, 11), (1 << 22, 16)):
         n_reads = n_codes // READ_LEN
         lengths = np.full(n_reads, READ_LEN, np.int32)
@@ -137,12 +151,17 @@ def phase_kernel(dev):
             plain_ms = cuda_ms(lambda: SE.stream_extract_torch(
                 w0, w1, w2, vm, k, layout=layout), 3)
             n_keys = 16 * w0.numel()
+            # each input word read once, 16 int64 keys per word written once
+            bound = bound_ms(n_keys * 8 + sum(
+                a.numel() * a.element_size() for a in (w0, w1, w2, vm)
+                if a is not None))
             log(f"kernel k={k} layout={layout} codes={n_codes} "
                 f"words={w0.numel()} equal=True max_abs_err={err} "
                 f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"bound_ms={bound:.4f} "
                 f"written_GB_per_s={n_keys * 8 / ms / 1e6:.1f}")
             if (n_codes, k, layout) == (SLAB_CODES, K, "stream3"):
-                result.update(ms=ms, plain_ms=plain_ms)
+                result.update(ms=ms, plain_ms=plain_ms, bound_ms=bound)
             result["max_abs_err"] = max(result["max_abs_err"], err)
         del inputs
     return result
@@ -371,39 +390,117 @@ def psort_check(label: str, arrs, log_block: int, got) -> dict:
         raise RuntimeError(f"psort {label}: keys != torch.sort")
     del got, want
 
-    def sort_fallback():
+    def sort_and_gather():
         s = torch.sort(keys, stable=True)
         return s.values, idx[s.indices]
 
     ms = cuda_ms(lambda: psort.sort_arrays_blocked(arrs, log_block), 5)
     plain_ms = cuda_ms(lambda: psort.sort_arrays_blocked_torch(arrs,
                                                                log_block), 1)
-    sort_ms = cuda_ms(sort_fallback, 5)
+    sort_ms = cuda_ms(sort_and_gather, 5)
     n = keys.numel()
+    # keys and payload each read once and written once
+    bound = bound_ms(2 * sum(a.numel() * a.element_size() for a in arrs))
     log(f"psort {label} n={n} log_block={log_block} equal=True "
         f"max_abs_err={err} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"torch_sort_ms={sort_ms:.4f} kernel_keys_per_s={n / ms * 1e3:.4e}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        f"torch_sort_ms={sort_ms:.4f} bound_ms={bound:.4f} "
+        f"kernel_keys_per_s={n / ms * 1e3:.4e}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                library_ms=sort_ms)
+
+
+def psort_schedules(keys, log_block: int) -> None:
+    """The kernel at every tile size and register group width chosen
+    from (T = 2^13, 2^14; r = 3, 4, 5), each equal to the default's
+    result, timed in one call; then the default's device time split by
+    pass kind from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from metafast_tpu_torch.ops import psort
+
+    log_n = keys.numel().bit_length() - 1
+    want = psort._sort_kernel(keys, log_block)
+    configs = [(lt, r) for lt in (13, 14) for r in (3, 4, 5)]
+    for lt, r in configs + [(psort.LOG_TILE, psort.FUSE)]:
+        got = psort._sort_kernel(keys, log_block, lt, r)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise RuntimeError(f"psort T=2^{lt} r={r} != default schedule")
+        del got
+        plan = psort._plan(log_n, lt, r)
+        n_glob = sum(p[0] == "global" for p in plan)
+        ms = cuda_ms(lambda: psort._sort_kernel(keys, log_block, lt, r), 3)
+        log(f"psort schedule n=2^{log_n} T=2^{lt} r={r} passes: "
+            f"global={n_glob} tile={len(plan) - n_glob} kernel_ms={ms:.4f}")
+    del want
+    # device time of each pass of the default schedule, from CUDA events
+    marks = [torch.cuda.Event(enable_timing=True)]
+
+    def mark(p):
+        marks.append((p, torch.cuda.Event(enable_timing=True)))
+        marks[-1][1].record()
+
+    torch.cuda.synchronize()
+    marks[0].record()
+    psort._sort_kernel(keys, log_block, after_pass=mark)
+    torch.cuda.synchronize()
+    prev, split = marks[0], {"first tile": [], "tile": [], "global": []}
+    for i, (p, ev) in enumerate(marks[1:]):
+        split["first tile" if i == 0 else p[0]].append(prev.elapsed_time(ev))
+        prev = ev
+    log("psort passes (default schedule, CUDA events): " + ", ".join(
+        f"{k} n={len(v)} mean_ms={np.mean(v):.4f} sum_ms={np.sum(v):.3f}"
+        for k, v in split.items() if v))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        psort._sort_kernel(keys, log_block)
+        torch.cuda.synchronize()
+    split: dict[str, list] = {}
+    for e in prof.key_averages():
+        kind = ("tile_pass" if "tile_pass" in e.key else
+                "global_pass" if "global_pass" in e.key else None)
+        dev_us = getattr(e, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "cuda_time_total", 0)
+        if kind and dev_us:
+            acc = split.setdefault(kind, [0, 0.0])
+            acc[0] += e.count
+            acc[1] += dev_us / 1e3
+    log("psort profile (default schedule, one call): " + (", ".join(
+        f"{k} launches={c} device_ms={t:.3f}" for k, (c, t) in
+        sorted(split.items())) or "no device time recorded: not measured"))
 
 
 def phase_psort(dev, sample0) -> dict:
     """Phase psort: the kernel through the public sort_arrays on the raw
-    keys of stress sample 0 and on 2^27 heavy-tie keys, each run counted
-    from 0; the JSON line reports the 2^27 run."""
+    keys of stress sample 0 and on 2^27 heavy-tie keys, and through
+    sort_arrays_blocked at log_block 12 (inside the tile) on 2^22 keys,
+    each run counted from 0; the JSON line reports the 2^27 run."""
     import torch
 
     from metafast_tpu_torch.core.bitpack import SENTINEL
+    from metafast_tpu_torch.kernels.build import build_log
     from metafast_tpu_torch.ops import psort
     from metafast_tpu_torch.ops import stream_extract as SE
 
-    def counted_sort(arrs):
+    plan = psort._plan(PSORT_N.bit_length() - 1)
+    n_glob = sum(p[0] == "global" for p in plan)
+    log(f"psort plan n=2^{PSORT_N.bit_length() - 1} T=2^{psort.LOG_TILE} "
+        f"r={psort.FUSE}: global_passes={n_glob} "
+        f"tile_passes={len(plan) - n_glob}")
+    for line in build_log("psort").splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            log("psort ptxas: " + line.strip())
+
+    def counted_sort(sort, arrs):
         torch.cuda.synchronize()
         psort.sort_arrays_blocked.launches = 0
-        got = psort.sort_arrays(arrs)
+        got = sort(arrs)
         torch.cuda.synchronize()
         launches = psort.sort_arrays_blocked.launches
         if launches < 1:
-            raise RuntimeError("sort_arrays did not launch the psort kernel")
+            raise RuntimeError("the psort kernel was not launched")
         return got, launches
 
     codes, lengths = sample0
@@ -414,26 +511,35 @@ def phase_psort(dev, sample0) -> dict:
                                       dtype=torch.int64, device=dev)])
     arrs = (keys, torch.arange(n, dtype=torch.int32, device=dev))
     del raw
-    got, _ = counted_sort(arrs)
+    got, _ = counted_sort(psort.sort_arrays, arrs)
     psort_check(f"(a) sample0 raw keys ({int((keys != SENTINEL).sum())} "
                 "live)", arrs, psort.LOG_BLOCK, got)
     del arrs, keys, got
 
+    def heavy_ties(n, seed):
+        rng = np.random.default_rng(seed)
+        pool = rng.integers(0, 1 << 62, 1 << 10)
+        r = rng.random(n, dtype=np.float32)
+        keys = np.where(r < 0.45, rng.integers(0, 1 << 62, n),
+                        pool[rng.integers(0, 1 << 10, n)])
+        keys[r >= 0.9] = SENTINEL
+        return (torch.from_numpy(keys).to(dev),
+                torch.arange(n, dtype=torch.int32, device=dev))
+
     t0 = time.perf_counter()
-    n = PSORT_N
-    rng = np.random.default_rng(3)
-    pool = rng.integers(0, 1 << 62, 1 << 10)
-    r = rng.random(n, dtype=np.float32)
-    keys = np.where(r < 0.45, rng.integers(0, 1 << 62, n),
-                    pool[rng.integers(0, 1 << 10, n)])
-    keys[r >= 0.9] = SENTINEL
-    arrs = (torch.from_numpy(keys).to(dev),
-            torch.arange(n, dtype=torch.int32, device=dev))
-    del keys, r
-    log(f"psort (b) data n={n} setup_s={time.perf_counter() - t0:.2f}")
-    got, launches = counted_sort(arrs)
+    arrs = heavy_ties(PSORT_N, 3)
+    log(f"psort (b) data n={PSORT_N} setup_s={time.perf_counter() - t0:.2f}")
+    got, launches = counted_sort(psort.sort_arrays, arrs)
     result = psort_check("(b) 2^27 heavy ties", arrs, psort.LOG_BLOCK, got)
     result["launches"] = launches
+    del got
+
+    small = heavy_ties(1 << 22, 4)
+    got, _ = counted_sort(lambda a: psort.sort_arrays_blocked(a, 12), small)
+    psort_check("(c) 2^22 heavy ties, log_block 12", small, 12, got)
+    del small, got
+
+    psort_schedules(arrs[0], psort.LOG_BLOCK)
     return result
 
 
@@ -546,7 +652,8 @@ def main() -> int:
                 pool.submit(load, "psort"), pool.submit(native_library)]
         for f in futs:
             f.result()
-    log(f"build: stream_extract.cu + psort.cu (nvcc) + native lib "
+    log(f"build: stream_extract.cu + psort.cu (nvcc, build/kernels/) + "
+        f"native/fastparse.cpp (g++, build/native/) "
         f"build_s={time.perf_counter() - t0:.2f}")
 
     kern = phase_kernel(dev)
@@ -569,6 +676,9 @@ def main() -> int:
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"],
         "plain_ms": kern["plain_ms"],
+        "bound_ms": kern["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
     }, {
         "name": "psort",
         "route": "cuda",
@@ -578,6 +688,9 @@ def main() -> int:
         "max_abs_err": sort["max_abs_err"],
         "ms": sort["ms"],
         "plain_ms": sort["plain_ms"],
+        "bound_ms": sort["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": sort["library_ms"],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

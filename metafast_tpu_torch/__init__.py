@@ -14,16 +14,17 @@ module names so each piece has an obvious counterpart:
   graph.contigs             simple-path contigs (Wyllie pointer doubling)
   graph.components          size-window component splitting (hooking)
   pipeline.matrix           features + Bray-Curtis, the whole pipeline
-  io                        the shared file formats (the JAX package's)
+  io                        the file formats and read parsers
   tools                     step framework and the ported tools
   cli                       ``python -m metafast_tpu_torch.cli -t <tool>``
 
 Keys are int64 (k <= 31 keeps them below 2**62) with INT64_MAX as the
 "no k-mer" sentinel.  Every public entry takes an explicit ``device``;
 "cuda" raises when there is no GPU, and "cpu" runs the plain PyTorch
-versions of the kernels.  The package imports torch and never jax; of the
-JAX package it uses only the jax-free host modules (the native C++
-parser and stream builders, the text/binary formats, the oracle).
+versions of the kernels.  The package imports torch and never jax, and
+nothing of the JAX package: it keeps its own copies of the host modules
+it needs (native/ with the C++ parser and stream builders, io/, the
+k-mer, progress, GFA, heatmap and presence helpers) under the same names.
 """
 
 __version__ = "0.1.0"

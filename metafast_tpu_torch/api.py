@@ -4,12 +4,12 @@ file loading.
 Counterpart of metafast_tpu/api.py count_reads_files (:295-434).  Two
 routes, per file:
 
-  * FASTA / FASTQ (optionally .gz / .bz2): the JAX package's jax-free
-    native parser; the concatenated codes are cut into slabs of at most
+  * FASTA / FASTQ (optionally .gz / .bz2): the native parser (the port's
+    copy of the JAX package's); the concatenated codes are cut into slabs of at most
     SLAB_CODES codes, packed into the compact 3-stream layout on the host,
     uploaded through pinned memory and extracted by the hand kernel.
   * anything the native parser does not take (BINQ): the Python reader's
-    padded read batches (metafast_tpu.io.reads.read_batches) into
+    padded read batches (io.reads.read_batches) into
     ``KmerCounter.add_batch``.
 """
 
@@ -18,9 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from metafast_tpu.io import binfmt, native_reads
-from metafast_tpu.io import reads as readsio
-
+from .io import binfmt, native_reads
+from .io import reads as readsio
 from .ops.count import SATURATE, KmerCounter, card_spill, device_table
 from .ops.stream_extract import build_stream3, to_device
 from .utils.device import resolve_device

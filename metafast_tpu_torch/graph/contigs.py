@@ -25,9 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from metafast_tpu.oracle.reference import kmer_string, rc64
-
 from ..core import bitpack as bp
+from ..utils.kmers import kmer_string, rc64
 from . import dbg
 
 CHARS = np.frombuffer(b"AGCT", dtype=np.uint8)

@@ -1,10 +1,10 @@
-"""The on-disk formats and read parsers, shared with the JAX package.
+"""The on-disk formats and read parsers.
 
-These are the JAX package's jax-free modules (``metafast_tpu.io``):
-``binfmt`` (.kmers.bin, components.bin), ``textfmt`` (stat,
-distribution, vectors, matrices, contig FASTA) and ``reads`` (FASTA,
-FASTQ, BINQ).  Code that names no module of the JAX package
-(``chip_smoke.py``) reaches them here.
+The port's copies of the JAX package's jax-free modules
+(``metafast_tpu.io``), under the same names: ``binfmt`` (.kmers.bin,
+components.bin), ``textfmt`` (stat, distribution, vectors, matrices,
+contig FASTA), ``reads`` (FASTA, FASTQ, BINQ) and ``native_reads`` (the
+C++ parser into padded batches).
 """
 
-from metafast_tpu.io import binfmt, reads, textfmt  # noqa: F401
+from . import binfmt, reads, textfmt  # noqa: F401

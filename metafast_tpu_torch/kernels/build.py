@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher and is
 compiled by nvcc for sm_90a into ``build/kernels/`` at the root of the
 checkout (git-ignored), keyed on a hash of the source and the flags, so a
-fresh checkout builds what it runs.  A missing nvcc or a failed build
-raises: there is no fallback to the plain PyTorch versions.
+fresh checkout builds what it runs; nvcc's ``-Xptxas -v`` report
+(registers, shared memory and spills of each kernel) is kept beside the
+library as ``<name>-<hash>.log`` (``build_log``).  A missing nvcc or a
+failed build raises: there is no fallback to the plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def _nvcc() -> str:
@@ -53,5 +55,12 @@ def load(name: str) -> ctypes.CDLL:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}) on {name}.cu:"
                                f"\n{proc.stdout}\n{proc.stderr}")
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)
     return ctypes.CDLL(str(out))
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for the built ``csrc/<name>.cu`` ("" if not kept)."""
+    log = _library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""

@@ -23,7 +23,11 @@ depends on that rule, so the port applies it per stage from the logical
 ``sort_arrays_blocked`` sends CUDA tensors to the hand kernel
 (csrc/psort.cu), which sorts (key, int32 index) pairs; the payloads are
 gathered by the index afterwards, which gives what carrying them would,
-since every decision of the network reads keys only.  CPU tensors go to
+since every decision of the network reads keys only.  The kernel's
+schedule is ``_plan``: tile passes over 2**LOG_TILE elements in shared
+memory and global passes of up to FUSE stages each, both running their
+stages in register groups of at most FUSE distance bits (``_groups``);
+the wrapper launches one entry point per pass.  CPU tensors go to
 ``sort_arrays_blocked_torch``.  The JAX counter sorts with jax.lax.sort and
 so does the port's (torch.sort): this module has no caller on the
 counting path.
@@ -39,6 +43,11 @@ import torch
 # smallest n that takes the blocked path in sort_arrays, and the default
 # tie-rule boundary (the JAX package's VMEM tile of 2**17 elements)
 LOG_BLOCK = 17
+# the kernel's shared-memory tile (2**14 x 12 B, padded: 202 KB of the
+# H100's 227 KB) and the stages per register group, chosen by timing
+# T = 2**13 / 2**14 and r = 3..5 at 2**27 keys on the card (PERF.md)
+LOG_TILE = 14
+FUSE = 4
 
 
 def _check(arrs, log_block: int) -> tuple[torch.Tensor, ...]:
@@ -106,28 +115,90 @@ def sort_arrays_blocked_torch(arrs, log_block: int = LOG_BLOCK):
 
 
 # ---------------------------------------------------------------------------
+# The kernel's pass plan
+# ---------------------------------------------------------------------------
+
+def _groups(ld_hi: int, ld_lo: int, fuse: int) -> list[tuple[int, int]]:
+    """Distance bits ld_hi..ld_lo (descending) cut into register groups
+    [(hi, lo), ...] of ``fuse`` bits from the top down, the last group
+    taking the remainder.  csrc/psort.cu tile_pass cuts a tile's distances
+    the same way."""
+    out = []
+    hi = ld_hi
+    while hi >= ld_lo:
+        out.append((hi, max(hi - fuse + 1, ld_lo)))
+        hi = out[-1][1] - 1
+    return out
+
+
+def _plan(log_n: int, log_tile: int = LOG_TILE, fuse: int = FUSE):
+    """The kernel's passes in order, each one HBM round trip:
+    ("tile", ls_lo, ls_hi) runs spans 2**ls_lo..2**ls_hi at every distance
+    below the tile 2**min(log_tile, log_n); ("global", ls, ld_hi, ld_lo)
+    runs span 2**ls at distances 2**ld_hi..2**ld_lo (at most ``fuse``)."""
+    lt = min(log_tile, log_n)
+    plan = [("tile", 1, lt)]
+    for ls in range(lt + 1, log_n + 1):
+        plan += [("global", ls, hi, lo) for hi, lo in _groups(ls - 1, lt,
+                                                               fuse)]
+        plan.append(("tile", ls, ls))
+    return plan
+
+
+# ---------------------------------------------------------------------------
 # Wrapper: the kernel on CUDA tensors, the plain version on CPU tensors
 # ---------------------------------------------------------------------------
 
 @functools.cache
-def _launcher():
+def _entry_points():
     from ..kernels.build import load
 
-    fn = load("psort").psort_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = load("psort")
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.psort_tile_pass.argtypes = [ptr, ptr, ptr, i64] + [i32] * 6 + [ptr]
+    lib.psort_tile_pass.restype = i32
+    lib.psort_global_pass.argtypes = [ptr, ptr, i64] + [i32] * 4 + [ptr]
+    lib.psort_global_pass.restype = i32
+    return lib.psort_tile_pass, lib.psort_global_pass
+
+
+def _sort_kernel(keys: torch.Tensor, log_block: int,
+                 log_tile: int = LOG_TILE, fuse: int = FUSE,
+                 after_pass=None):
+    """(sorted keys, int32 index) from the kernel, one launch per pass of
+    ``_plan``, on the current stream without a synchronise;
+    ``after_pass(p)``, if given, is called after each pass is launched."""
+    tile, glob = _entry_points()
+    n = keys.numel()
+    log_n = n.bit_length() - 1
+    lt = min(log_tile, log_n)
+    out = torch.empty_like(keys)
+    idx = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
+    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    for i, p in enumerate(_plan(log_n, log_tile, fuse)):
+        if p[0] == "tile":
+            src = keys if i == 0 else out
+            err = tile(src.data_ptr(), out.data_ptr(), idx.data_ptr(), n, lt,
+                       p[1], p[2], log_block, fuse, int(i == 0), stream)
+        else:
+            err = glob(out.data_ptr(), idx.data_ptr(), n, p[1], p[2], p[3],
+                       log_block, stream)
+        if err != 0:
+            raise RuntimeError(f"psort {p[0]} pass {p} failed to launch: "
+                               f"CUDA error {err}")
+        if after_pass is not None:
+            after_pass(p)
+    return out, idx
 
 
 def sort_arrays_blocked(arrs, log_block: int = LOG_BLOCK):
     """(keys, *payloads) sorted by the int64 keys through the blocked
     bitonic network; n a power of two >= 2**log_block.
 
-    CUDA tensors go through the hand kernel (csrc/psort.cu), launched on
-    the current stream without a synchronise; CPU tensors through
-    ``sort_arrays_blocked_torch``.  ``sort_arrays_blocked.launches``
-    counts kernel calls.
+    CUDA tensors go through the hand kernel (csrc/psort.cu, the passes of
+    ``_plan``), launched on the current stream without a synchronise; CPU
+    tensors through ``sort_arrays_blocked_torch``.
+    ``sort_arrays_blocked.launches`` counts kernel calls (one per sort).
     """
     arrs = _check(arrs, log_block)
     keys = arrs[0]
@@ -137,14 +208,8 @@ def sort_arrays_blocked(arrs, log_block: int = LOG_BLOCK):
         raise ValueError(f"unsupported device {keys.device}")
     if not keys.is_contiguous():
         raise ValueError("sort_arrays_blocked needs contiguous keys")
-    out = torch.empty_like(keys)
-    idx = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
     with torch.cuda.device(keys.device):
-        err = _launcher()(
-            keys.data_ptr(), out.data_ptr(), idx.data_ptr(), keys.numel(),
-            log_block, torch.cuda.current_stream(keys.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"psort kernel launch failed: CUDA error {err}")
+        out, idx = _sort_kernel(keys, log_block)
     sort_arrays_blocked.launches += 1
     return _gather(arrs, out, idx)
 

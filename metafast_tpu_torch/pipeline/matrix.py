@@ -22,11 +22,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from metafast_tpu.io.reads import sample_name
-
 from .. import api
 from ..graph import components as comp_mod
 from ..graph import contigs as contigs_mod
+from ..io.reads import sample_name
 from ..ops.count import KmerCounter, card_spill, device_table
 from ..state import HostComponent, components_to_numpy
 from ..utils.device import resolve_device

@@ -11,9 +11,8 @@ from pathlib import Path
 
 import numpy as np
 
-from metafast_tpu.io import textfmt
-from metafast_tpu.viz.heatmap import render_heatmap
-
+from ..io import textfmt
+from ..viz.heatmap import render_heatmap
 from .framework import ExecutionFailed, Param, Tool, late_bind, register
 from .pipeline1 import (ComponentCutterTool, DistMatrixCalculatorTool,
                         FeaturesCalculatorTool, KmerCounterManyTool,

@@ -16,11 +16,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from metafast_tpu.io import binfmt
-from metafast_tpu.io import reads as readsio
-from metafast_tpu.utils.kmers import kmers_strings, sequence_kmers
-
 from ..graph.lookup import values_at
+from ..io import binfmt
+from ..io import reads as readsio
+from ..utils.kmers import kmers_strings, sequence_kmers
 from .framework import Param, Tool, host, late_bind, read_table, register
 from .pipeline1 import KmerCounterManyTool, SeqBuilderManyTool
 

@@ -5,7 +5,8 @@ Counterpart of metafast_tpu/tools/counter_tools.py (:45-222); parity:
 src/tools/KmersSamplesCounter.java, KmersGroupedSamplesCounter.java,
 KmersPerSampleCounter.java, KmersMultipleFilters.java.  The presence
 counts and filter lookups run on ``ctx.device``; kmers-per-sample keeps
-the JAX package's streaming host structures (``stats.presence``).
+the JAX package's streaming host structures (``stats.presence``, the
+port's copy).
 """
 
 from __future__ import annotations
@@ -14,12 +15,11 @@ from pathlib import Path
 
 import torch
 
-from metafast_tpu.io import binfmt, textfmt
-from metafast_tpu.stats import presence as pres
-from metafast_tpu.utils.kmers import kmers_strings
-
 from .. import api
 from ..graph.lookup import find, values_at
+from ..io import binfmt, textfmt
+from ..stats import presence as pres
+from ..utils.kmers import kmers_strings
 from .framework import (Param, Tool, check_k, host, read_table, register,
                         workdir_sub)
 

@@ -12,10 +12,9 @@ from pathlib import Path
 
 import torch
 
-from metafast_tpu.io import binfmt, textfmt
-
 from .. import api
 from ..graph.lookup import values_at
+from ..io import binfmt, textfmt
 from .framework import (ExecutionFailed, Param, Tool, check_k, host,
                         read_table, register, workdir_sub)
 from .pipeline1 import KmerCounterManyTool

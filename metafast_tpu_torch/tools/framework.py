@@ -20,10 +20,6 @@ Parameter.java, ParameterDescription.java):
 One addition: ``RunContext.device``, the torch device every tool runs on.
 It is a launch option, not a tool Param, so the declared parameters, the
 ``-h`` text and the manifests' ``inputs`` are the JAX package's.
-
-The JAX framework cannot be imported instead: importing
-``metafast_tpu.tools.framework`` first runs ``metafast_tpu/tools/__init__``,
-which imports every JAX tool module and with them jax.
 """
 
 from __future__ import annotations
@@ -39,8 +35,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from metafast_tpu.io import binfmt
-
+from ..io import binfmt
 from ..utils.device import resolve_device
 
 LOGGER = "metafast_torch"

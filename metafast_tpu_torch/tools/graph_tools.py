@@ -2,8 +2,8 @@
 
 Counterpart of metafast_tpu/tools/graph_tools.py (:18-73); parity:
 src/tools/ComponentsToGraph.java.  The coverage lookups run on
-``ctx.device``; the GFA text comes from the JAX package's jax-free
-``graph.gfa``.
+``ctx.device``; the GFA text comes from ``graph.gfa``, the port's copy
+of the JAX package's.
 """
 
 from __future__ import annotations
@@ -13,11 +13,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from metafast_tpu.graph.gfa import component_gfa
-from metafast_tpu.io import binfmt
-
 from .. import api
+from ..graph.gfa import component_gfa
 from ..graph.lookup import find, values_at
+from ..io import binfmt
 from .framework import Param, Tool, check_k, host, read_table, register
 
 

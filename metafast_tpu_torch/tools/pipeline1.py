@@ -16,15 +16,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from metafast_tpu.io import binfmt, textfmt
-from metafast_tpu.io import reads as readsio
-from metafast_tpu.utils.progress import CountingProgress
-
 from .. import api
 from ..graph import components as comp_mod
 from ..graph import contigs as contigs_mod
+from ..io import binfmt, textfmt
+from ..io import reads as readsio
 from ..pipeline.matrix import (bray_curtis_matrix, count_contig_kmers,
                                feature_vectors)
+from ..utils.progress import CountingProgress
 from .framework import (ExecutionFailed, Param, Tool, check_k, host,
                         read_table, register, workdir_sub)
 

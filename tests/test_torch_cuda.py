@@ -12,9 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from metafast_tpu.io.native_reads import pack_2bit
 from metafast_tpu_torch import cli
 from metafast_tpu_torch.core.bitpack import SENTINEL
+from metafast_tpu_torch.io.native_reads import pack_2bit
 from metafast_tpu_torch.ops import psort
 from metafast_tpu_torch.ops import stream_extract as TSE
 from metafast_tpu_torch.ops.count import (MERGE_CHUNK_BYTES,
@@ -83,19 +83,32 @@ def test_counter_gpu_matches_cpu(k, cuda_device):
     assert np.array_equal(tables[0][1], tables[1][1])
 
 
-@pytest.mark.parametrize("log_block", [17, 12])
-@pytest.mark.parametrize("logn", [17, 18, 20])
-def test_psort_kernel_matches_plain(logn, log_block, cuda_device):
-    """Duplicates, sentinels and two payloads; keys, payload order and the
-    tie order equal the plain version's, on the card and on the CPU."""
+def _psort_inputs(logn, log_block, device):
+    """Duplicates, sentinels, an int32 index and a float payload."""
     rng = np.random.default_rng(logn + log_block)
     n = 1 << logn
     keys = np.where(rng.random(n) < 0.5, rng.integers(0, 1 << 62, n),
                     rng.integers(0, 1 << 10, n))
     keys[rng.random(n) < 0.1] = SENTINEL
-    arrs = (torch.from_numpy(keys.astype(np.int64)).to(cuda_device),
-            torch.arange(n, dtype=torch.int32, device=cuda_device),
-            torch.from_numpy(rng.random(n)).to(cuda_device))
+    return (torch.from_numpy(keys.astype(np.int64)).to(device),
+            torch.arange(n, dtype=torch.int32, device=device),
+            torch.from_numpy(rng.random(n)).to(device))
+
+
+# n below, at and twice the 2**14 tile and 2**22; log_block 10 and 13
+# inside the tile's distances (13 splits its top register group), 17
+# above the tile (at 2**22 it splits a global group of every span from
+# 2**18 up)
+PSORT_CASES = ([(logn, lb) for logn in (17, 18, 20) for lb in (17, 12)]
+               + [(logn, lb) for logn in (13, 14, 15, 22)
+                  for lb in (10, 13, 17) if lb <= logn])
+
+
+@pytest.mark.parametrize("logn,log_block", PSORT_CASES)
+def test_psort_kernel_matches_plain(logn, log_block, cuda_device):
+    """Keys, payload order and the tie order equal the plain version's,
+    on the card and on the CPU."""
+    arrs = _psort_inputs(logn, log_block, cuda_device)
     before = psort.sort_arrays_blocked.launches
     got = psort.sort_arrays_blocked(arrs, log_block=log_block)
     torch.cuda.synchronize()
@@ -109,6 +122,29 @@ def test_psort_kernel_matches_plain(logn, log_block, cuda_device):
                                               log_block=log_block)
         for g, c in zip(got, cpu):
             assert torch.equal(g.cpu(), c)
+
+
+@pytest.mark.parametrize("fuse", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("log_tile", [12, 13, 14])
+def test_psort_schedules_match_plain(log_tile, fuse, cuda_device):
+    """Every tile size and register group width of the kernel sorts as
+    the plain version does, at 2**16 keys with log_block 13."""
+    keys = _psort_inputs(16, 13, cuda_device)[0]
+    got_keys, got_idx = psort._sort_kernel(keys, 13, log_tile, fuse)
+    want_keys, want_perm = psort._network_torch(keys, 13)
+    assert torch.equal(got_keys, want_keys)
+    assert torch.equal(got_idx.long(), want_perm)
+
+
+def test_psort_small_n(cuda_device):
+    """n = 2 .. 2**12, below the tile, at log_block 1 and log_n."""
+    for logn in range(1, 13):
+        for log_block in sorted({1, logn}):
+            arrs = _psort_inputs(logn, log_block, cuda_device)
+            got = psort.sort_arrays_blocked(arrs, log_block=log_block)
+            want = psort.sort_arrays_blocked_torch(arrs, log_block)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (logn, log_block)
 
 
 def test_psort_sort_arrays_takes_the_kernel(cuda_device):

@@ -2,8 +2,9 @@
 
 Three synthetic samples share a backbone; both packages run
 matrix_pipeline on the same FASTA files and every field of the result
-must be equal.  Two subprocesses show that the port needs no JAX and
-that chip_smoke.py has no CPU fallback.
+must be equal.  Two subprocesses show that the port needs neither JAX nor
+the JAX package and that chip_smoke.py has no CPU fallback; an AST scan
+shows that no module of the port imports either.
 """
 
 import ast
@@ -67,6 +68,7 @@ def test_cli_writes_matrix(samples, tmp_path):
 _NO_JAX = """
 import sys
 sys.modules["jax"] = None          # any import of jax now fails
+sys.modules["metafast_tpu"] = None  # and any of the JAX package
 import numpy as np
 import torch
 from metafast_tpu_torch import api
@@ -101,6 +103,8 @@ for tool in (["unique-kmers", "-i", kb[0], "--filter-kmers", kb[1]],
                      "--device", "cpu"]) == 0, tool[0]
 assert not any(m == "jax" or m.startswith("jax.") for m, v in
                sys.modules.items() if v is not None)
+assert not any(m == "metafast_tpu" or m.startswith("metafast_tpu.")
+               for m, v in sys.modules.items() if v is not None)
 print("ok", len(res.components))
 """
 
@@ -129,6 +133,49 @@ def test_chip_smoke_imports_no_jax_package():
     assert "metafast_tpu_torch.api" in modules
     assert not [m for m in modules
                 if m.split(".")[0] in ("jax", "metafast_tpu")]
+
+
+def _imported_top_levels(path: Path) -> set[str]:
+    """Top-level package of every import and absolute from-import."""
+    tree = ast.parse(path.read_text())
+    tops = {a.name.split(".")[0] for n in ast.walk(tree)
+            if isinstance(n, ast.Import) for a in n.names}
+    tops |= {n.module.split(".")[0] for n in ast.walk(tree)
+             if isinstance(n, ast.ImportFrom) and n.level == 0}
+    return tops
+
+
+def test_port_modules_import_no_jax_package():
+    """No module of the port imports jax or metafast_tpu, at module level
+    or inside a function: it keeps its own copies of the host modules."""
+    files = sorted((REPO / "metafast_tpu_torch").rglob("*.py"))
+    assert len(files) > 40
+    bad = {str(f.relative_to(REPO)): tops & {"jax", "metafast_tpu"}
+           for f in files if (tops := _imported_top_levels(f))
+           & {"jax", "metafast_tpu"}}
+    assert not bad
+
+
+def test_native_build_stays_in_the_port(tmp_path, monkeypatch):
+    """The port's C++ library builds into build/native/ under the
+    checkout, keyed by source and flags, never into metafast_tpu/native/;
+    a failing compiler raises."""
+    from metafast_tpu_torch.native import build
+
+    out = build.library_path()
+    assert out.parent == REPO / "build" / "native" == build.BUILD_DIR
+    assert out.name.startswith("fastparse-") and out.suffix == ".so"
+    lib = build.load_library()
+    assert Path(lib._name) == out and out.is_file()
+    assert build._SRC.parent == REPO / "metafast_tpu_torch" / "native"
+    # a build elsewhere writes only there, and a failing g++ raises
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "native")
+    assert build._build().parent == tmp_path / "native"
+    monkeypatch.setattr(build, "CXX_FLAGS",
+                        [*build.CXX_FLAGS, "--no-such-flag"])
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        build._build()
+    assert len(list((tmp_path / "native").glob("*.so"))) == 1
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -150,6 +150,152 @@ def test_rejects_bad_length(n, log_block):
                                   log_block=log_block)
 
 
+# ---------------------------------------------------------------------------
+# The kernel's pass plan (csrc/psort.cu runs it; here it is checked on the
+# CPU: the stages it covers, and a plain executor of its register groups)
+# ---------------------------------------------------------------------------
+
+def _network_stages(log_n):
+    return [(ls, ld) for ls in range(1, log_n + 1)
+            for ld in range(ls - 1, -1, -1)]
+
+
+def _plan_stages(plan, log_n, log_tile, fuse):
+    """The (log span, log distance) stages the plan runs, in order; a
+    tile pass cuts each span's distances below the tile as
+    csrc/psort.cu tile_pass does (psort._groups)."""
+    lt = min(log_tile, log_n)
+    out = []
+    for p in plan:
+        if p[0] == "global":
+            out += [(p[1], ld) for ld in range(p[2], p[3] - 1, -1)]
+            continue
+        for ls in range(p[1], p[2] + 1):
+            for hi, lo in psort._groups(min(ls, lt) - 1, 0, fuse):
+                out += [(ls, ld) for ld in range(hi, lo - 1, -1)]
+    return out
+
+
+@pytest.mark.parametrize("fuse", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("log_tile", [12, 13, 14])
+def test_plan_covers_the_network(log_tile, fuse):
+    """Flattened to (span, distance) stages, the plan is the network's
+    stage list, each stage once and in order, for every n up to 2**31;
+    global passes hold 1..fuse distances, all at or above the tile."""
+    for log_n in range(1, 32):
+        lt = min(log_tile, log_n)
+        plan = psort._plan(log_n, log_tile, fuse)
+        assert _plan_stages(plan, log_n, log_tile, fuse) == \
+            _network_stages(log_n), log_n
+        assert plan[0] == ("tile", 1, lt)
+        glob = [p for p in plan if p[0] == "global"]
+        assert all(p[3] >= lt and p[2] < p[1] and 1 <= p[2] - p[3] + 1
+                   <= fuse for p in glob)
+        assert len(glob) == sum(-(-(ls - lt) // fuse)
+                                for ls in range(lt + 1, log_n + 1))
+        assert len(plan) - len(glob) == 1 + max(0, log_n - lt)
+
+
+def test_plan_at_2_27_has_at_most_50_passes():
+    """42 HBM round trips (28 global, 14 tile) at the defaults, against
+    136 (120 + 16) for one stage per pass and a 2**12 tile."""
+    plan = psort._plan(27)
+    assert (psort.LOG_TILE, psort.FUSE) == (14, 4)
+    assert sum(p[0] == "global" for p in plan) == 28
+    assert sum(p[0] == "tile" for p in plan) == 14
+    assert len(psort._plan(27, 12, 1)) == 136
+
+
+def _run_group(k, x, offs, base, hi, lo, log_span, log_block):
+    """One register group as a thread of the kernel runs it: the sets'
+    elements gathered to [..., 2**g], stage by stage, scattered back."""
+    g = hi - lo + 1
+    kk, xx = k[..., offs], x[..., offs]
+    up = (((base >> log_span) & 1) == 0)[..., None]
+    for q in range(g - 1, -1, -1):
+        j = [i for i in range(1 << g) if not i & (1 << q)]
+        m = [i | (1 << q) for i in j]
+        a, b = kk[..., j], kk[..., m]
+        up_rule = a > b if lo + q < log_block else a >= b
+        swap = torch.where(up, up_rule, a < b)
+        kk[..., j], kk[..., m] = (torch.where(swap, b, a),
+                                  torch.where(swap, a, b))
+        xa, xb = xx[..., j], xx[..., m]
+        xx[..., j], xx[..., m] = (torch.where(swap, xb, xa),
+                                  torch.where(swap, xa, xb))
+    k[..., offs], x[..., offs] = kk, xx
+
+
+def _set_bases(n_sets, lo, g):
+    w = torch.arange(n_sets)
+    return ((w >> lo) << (lo + g)) | (w & ((1 << lo) - 1))
+
+
+def _run_plan_torch(keys, log_block, log_tile, fuse):
+    """The kernel's schedule in torch ops: every pass of the plan, every
+    register group of a pass with the kernel's set indexing (tile-local
+    inside a tile pass, whole-array in a global pass)."""
+    n = keys.numel()
+    log_n = n.bit_length() - 1
+    lt = min(log_tile, log_n)
+    k = keys.clone()
+    x = torch.arange(n, dtype=torch.int32)
+    for p in psort._plan(log_n, log_tile, fuse):
+        if p[0] == "global":
+            _, ls, hi, lo = p
+            b = _set_bases(n >> (hi - lo + 1), lo, hi - lo + 1)
+            offs = b[:, None] + (torch.arange(1 << (hi - lo + 1)) << lo)
+            _run_group(k, x, offs, b, hi, lo, ls, log_block)
+            continue
+        kt, xt = k.view(-1, 1 << lt), x.view(-1, 1 << lt)
+        tile_base = torch.arange(n >> lt)[:, None] << lt
+        for ls in range(p[1], p[2] + 1):
+            for hi, lo in psort._groups(min(ls, lt) - 1, 0, fuse):
+                g = hi - lo + 1
+                b = _set_bases(1 << (lt - g), lo, g)
+                offs = b[:, None] + (torch.arange(1 << g) << lo)
+                _run_group(kt, xt, offs, tile_base + b, hi, lo, ls,
+                           log_block)
+    return k, x
+
+
+def _heavy_ties(log_n, seed=0):
+    rng = np.random.default_rng(seed + log_n)
+    n = 1 << log_n
+    keys = np.where(rng.random(n) < 0.3, rng.integers(0, 1 << 62, n),
+                    rng.integers(0, 8, n))
+    return torch.from_numpy(keys.astype(np.int64))
+
+
+def _sentinels(log_n):
+    hi, lo = _rand_pairs(np.random.default_rng(log_n), 1 << log_n,
+                         hi_space=16, sentinel_frac=0.2)
+    return torch.from_numpy(join_pairs(hi, lo))
+
+
+# (log_n, log_tile, fuse, log_block): n = 2**10 with a 2**6 tile has tile
+# distances 0..5 (groups of 3: bits 5..3, 2..0) and global ones 6..9
+# (span 2**10: bits 9..7, then 6).  log_block 1 lies below the tile's
+# distances, 4 inside them (and splits the group 5..3), 8 above the tile
+# (and splits the global group 9..7), 10 above every distance.  The
+# defaults (2**14 tile, groups of 4) at 2**16: 13 splits a tile group,
+# 15 the global group 15..14.
+PLAN_CASES = [(10, 6, 3, lb) for lb in (1, 4, 8, 10)] + [
+    (9, 6, 4, 5), (7, 3, 2, 2), (6, 12, 4, 3), (1, 14, 4, 1),
+    (16, 14, 4, 13), (16, 14, 4, 15), (15, 13, 5, 14)]
+
+
+@pytest.mark.parametrize("data", ["heavy_ties", "sentinels"])
+@pytest.mark.parametrize("log_n,log_tile,fuse,log_block", PLAN_CASES)
+def test_plan_executor_matches_network(log_n, log_tile, fuse, log_block,
+                                       data):
+    keys = (_heavy_ties if data == "heavy_ties" else _sentinels)(log_n)
+    want_keys, want_perm = psort._network_torch(keys, log_block)
+    got_keys, got_idx = _run_plan_torch(keys, log_block, log_tile, fuse)
+    assert torch.equal(got_keys, want_keys)
+    assert torch.equal(got_idx.long(), want_perm)
+
+
 def test_rejects_mismatched_payload_and_dtype():
     keys = torch.zeros(1 << 10, dtype=torch.int64)
     with pytest.raises(ValueError):
