@@ -21,6 +21,19 @@ Phases (any failure raises and exits non-zero):
      components.bin equal phase 3's written by the same writers, and
      sample 0's .kmers.bin the native table at count > 1.  A rerun with
      ``-c`` must skip every step and launch nothing.
+  groups. Pipelines 5 and 2 (``-t stats-features`` and ``-t
+     unique-features --min-samples 4 --max-samples 4``) through the
+     launcher on 8 such samples (seed 0) where samples 0-3, the positive
+     group, also share a 0.5 Mbp marker region: wall and per-step
+     seconds, peak device memory, the extraction kernel's launches
+     counted from 0 (at least one a sample), the pivots, the components
+     and whether a traversal overflowed to the Python spec.  Positive
+     sample 0's .kmers.bin equals the native table at count > 1; every
+     pivot in the graph lies in a component; the pivot graph's neighbour
+     index built on the card equals the CPU's and the native one (more
+     than 2^21 keys).  Then both pipelines and ``component-extractor
+     --depth 2`` at 3+3 samples of 200 kbp write the same files on the
+     card and on the CPU.
   psort. The blocked bitonic sort kernel against its plain PyTorch
      version, each run with its launches counted from 0: through the
      public sort_arrays (a) the raw k-mer keys of stress sample 0 (its
@@ -64,6 +77,9 @@ K = 31
 READ_LEN = 150
 PSORT_N = 1 << 27       # keys of the psort phase's part (b)
 SPILL = 1 << 20         # spill threshold of the batch route's part (b)
+# phase groups' positive graph must be larger: the size from which the
+# JAX package built the pivot index on its device (pivot.py _DEVICE_MIN)
+PIVOT_GRAPH_MIN = 1 << 21
 
 
 def log(msg: str) -> None:
@@ -71,15 +87,22 @@ def log(msg: str) -> None:
 
 
 def write_samples(directory: Path, n_samples: int, genome_len: int,
-                  shared_len: int, coverage: int, seed: int = 0):
-    """The bench.py stress() read sets: genomes sharing a backbone."""
+                  shared_len: int, coverage: int, seed: int = 0,
+                  marker: tuple[int, int] | None = None):
+    """The bench.py stress() read sets: genomes sharing a backbone.  With
+    ``marker`` = (length, n), the first n samples also share a marker
+    region of that length after the backbone (a positive group)."""
     rng = np.random.default_rng(seed)
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
     backbone = bases[rng.integers(0, 4, shared_len)]
+    marker_len, n_marked = marker or (0, 0)
+    mark = bases[rng.integers(0, 4, marker_len)] if marker else backbone[:0]
     files = []
     for s in range(n_samples):
+        head = [backbone, mark] if s < n_marked else [backbone]
+        private = genome_len - sum(len(h) for h in head)
         genome = np.concatenate(
-            [backbone, bases[rng.integers(0, 4, genome_len - shared_len)]])
+            [*head, bases[rng.integers(0, 4, private)]])
         n_reads = genome_len * coverage // READ_LEN
         starts = rng.integers(0, genome_len - READ_LEN, n_reads)
         reads = genome[starts[:, None] + np.arange(READ_LEN)[None, :]]
@@ -89,6 +112,15 @@ def write_samples(directory: Path, n_samples: int, genome_len: int,
                               for i in range(n_reads)))
         files.append(str(path))
     return files
+
+
+def log_clocks(label: str) -> None:
+    """The card's clocks, power draw and temperature, beside a phase."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    log(f"clocks before {label}: sm, mem, power, temperature = {out}")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -371,6 +403,181 @@ def phase_cli(dev, files, res, native, workdir: Path) -> None:
     if skipped != CLI_STEPS or ran != ["matrix-builder"] or launches_c:
         raise RuntimeError(f"cli -c: skipped {skipped}, started {ran}, "
                            f"{launches_c} launches")
+
+
+GROUP_RUNS = {
+    # run: (extra arguments, pivot file under the work dir)
+    "stats-features": ([], "stats-kmers/kmers/filtered_groupA.kmers.bin"),
+    "unique-features": (["--min-samples", "4", "--max-samples", "4"],
+                        "unique-kmers-multi/kmers/filtered_4.kmers.bin"),
+}
+_TS = re.compile(rb"\d{4}-\d{2}-\d{2}_\d{2}-\d{2}-\d{2}")
+
+
+def workdir_tree(wd: Path) -> dict:
+    """A CLI work dir as {relative path: bytes}, without its logs, with
+    run timestamps and the work dir's own path masked."""
+    out = {}
+    for p in sorted(wd.rglob("*")):
+        rel = p.relative_to(wd)
+        if p.is_dir() or rel.parts[0] in ("log", "logs"):
+            continue
+        out[_TS.sub(b"<ts>", str(rel).encode())] = _TS.sub(
+            b"<ts>", p.read_bytes().replace(str(wd).encode(), b"<wd>"))
+    return out
+
+
+def group_run(dev, name: str, files, wd: Path, device: str, extra=()):
+    """One group tool through the port's launcher: (wall s, extraction
+    kernel launches counted from 0, peak device GB, the run's log)."""
+    import torch
+
+    from metafast_tpu_torch import cli
+    from metafast_tpu_torch.ops import stream_extract as SE
+    from metafast_tpu_torch.utils.device import synchronize
+
+    args = ["-t", name, "-k", str(K), *files, *extra, "-w", str(wd),
+            "--device", device]
+    synchronize(dev)
+    torch.cuda.reset_peak_memory_stats()
+    SE.stream_extract.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(args)
+    synchronize(dev)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"{name} on {device} exited {rc}")
+    return (wall, SE.stream_extract.launches,
+            torch.cuda.max_memory_allocated() / 1e9, (wd / "log").read_text())
+
+
+def phase_groups(dev, workdir: Path) -> None:
+    """Phase groups: pipelines 5 and 2 through the launcher on 8 samples
+    (positive = the 4 that share a marker region), checked against the
+    native counter, their own pivots and the CPU; then both pipelines and
+    a depth-2 component-extractor at 3+3 samples of 200 kbp, equal on
+    the card and on the CPU, file for file."""
+    import torch
+
+    from metafast_tpu_torch import api
+    from metafast_tpu_torch.graph import pivot
+    from metafast_tpu_torch.io import binfmt
+    from metafast_tpu_torch.utils.native import native_library
+
+    gdir = workdir / "groups"
+    gdir.mkdir()
+    n_samples, genome, shared, marker, cov = 8, 2_500_000, 1_000_000, 500_000, 12
+    t0 = time.perf_counter()
+    files = write_samples(gdir, n_samples, genome, shared, cov, seed=0,
+                          marker=(marker, 4))
+    groups = ["-pos", *files[:4], "-neg", *files[4:]]
+    log(f"groups data: S={n_samples} (positive 0-3 with a {marker} bp "
+        f"marker) genome={genome} shared={shared} coverage={cov} seed=0 "
+        f"setup_s={time.perf_counter() - t0:.2f}")
+
+    for name, (extra, pivot_file) in GROUP_RUNS.items():
+        wd = gdir / name
+        wall, launches, peak_gb, text = group_run(dev, name, groups, wd,
+                                                  "cuda", extra)
+        step_s: dict[str, float] = {}
+        for step, sec in re.findall(r"\[([\w-]+)\] done in ([\d.]+)s", text):
+            step_s[step] = round(step_s.get(step, 0.0) + float(sec), 3)
+        pivots, _ = binfmt.read_kmers_bin(str(wd / pivot_file))
+        comps = binfmt.read_components_bin(
+            str(wd / "component-extractor" / "components.bin"))
+        overflow = "members buffer overflow" in text
+        log(f"groups {name} wall_s={wall:.3f} step_s={json.dumps(step_s)} "
+            f"peak_device_GB={peak_gb:.3f} launches={launches} "
+            f"pivots={len(pivots)} components={len(comps)} "
+            f"component_kmers={sum(len(c[0]) for c in comps)} "
+            f"overflow_branch_taken={overflow}")
+        if launches < n_samples:
+            raise RuntimeError(f"groups {name}: {launches} extraction "
+                               f"launches, fewer than {n_samples} samples")
+        if not comps:
+            raise RuntimeError(f"groups {name}: no components")
+        pos = [str(wd / "kmer-counter-posneg" / "pos" / "kmers" /
+                   f"stress_{i}.kmers.bin") for i in range(4)]
+        graph = np.unique(np.concatenate(
+            [binfmt.read_kmers_bin(f)[0] for f in pos]))
+        members = np.concatenate([c[0] for c in comps])
+        lost = ~np.isin(pivots[np.isin(pivots, graph)], members)
+        if lost.any():
+            raise RuntimeError(f"groups {name}: {int(lost.sum())} pivots of "
+                               "the graph lie in no component")
+    log(f"check groups: every pivot in the graph lies in a component "
+        f"(graph of {len(graph)} keys)")
+
+    # positive sample 0 against the native counter, at count > 1
+    codes, lengths, _, _ = api.parse_reads(files[0])
+    nkeys, ncounts = native_counts(native_library(), codes, lengths)
+    keys, counts = binfmt.read_kmers_bin(pos[0])
+    good = ncounts > 1
+    if not (np.array_equal(keys, nkeys[good])
+            and np.array_equal(counts, ncounts[good])):
+        raise RuntimeError("groups stress_0.kmers.bin != native table, "
+                           "count > 1")
+    log(f"check groups stress_0.kmers.bin == native count > 1 "
+        f"({len(keys)} keys)")
+
+    # the pivot graph's neighbour index on the card against the CPU's and
+    # the native hash index
+    if len(graph) <= PIVOT_GRAPH_MIN:
+        raise RuntimeError(f"groups: the positive graph has {len(graph)} "
+                           f"keys, not more than {PIVOT_GRAPH_MIN}")
+    tables, secs = {}, {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        tables[device] = [t.cpu() for t in pivot.neighbor_index(
+            torch.from_numpy(graph).to(device), K)]
+        secs[device] = time.perf_counter() - t0
+    left, right = pivot.native_neighbor_index(native_library(), graph, K)
+    if not (all(torch.equal(a, b)
+                for a, b in zip(tables["cuda"], tables["cpu"]))
+            and np.array_equal(tables["cuda"][0].numpy(), right)
+            and np.array_equal(tables["cuda"][1].numpy(), left)):
+        raise RuntimeError("groups: neighbour index on cuda != cpu / native")
+    log(f"check groups neighbour index cuda == cpu == native over "
+        f"{len(graph)} keys: cuda_s={secs['cuda']:.3f} "
+        f"cpu_s={secs['cpu']:.3f}")
+
+    # small scale: the card against the CPU, work dir for work dir
+    small = workdir / "groups_small"
+    small.mkdir()
+    files = write_samples(small, 6, 200_000, 80_000, 12, seed=2,
+                          marker=(40_000, 3))
+    groups = ["-pos", *files[:3], "-neg", *files[3:]]
+    runs = {name: (groups, extra) for name, (extra, _) in GROUP_RUNS.items()}
+    runs["unique-features"] = (groups, ["--min-samples", "3",
+                                        "--max-samples", "3"])
+    sf = small / "cuda_stats-features"
+    runs["component-extractor"] = (
+        ["-i", *[str(sf / "kmer-counter-posneg" / "pos" / "kmers" /
+                     f"stress_{i}.kmers.bin") for i in range(3)],
+         "--pivot", str(sf / GROUP_RUNS["stats-features"][1])],
+        ["--depth", "2"])
+    for name, (inputs, extra) in runs.items():
+        walls = {}
+        for device in ("cuda", "cpu"):
+            walls[device] = group_run(dev, name, inputs,
+                                      small / f"{device}_{name}", device,
+                                      extra)[0]
+        got = workdir_tree(small / f"cuda_{name}")
+        want = workdir_tree(small / f"cpu_{name}")
+        if got != want:
+            differ = sorted(set(got) ^ set(want)) or [
+                r for r in want if got[r] != want[r]]
+            raise RuntimeError(f"groups small {name}: cuda != cpu in "
+                               f"{differ[:5]}")
+        comps = binfmt.read_components_bin(
+            str(small / f"cuda_{name}" / ("component-extractor/components.bin"
+                                          if name != "component-extractor"
+                                          else "components.bin")))
+        if not comps:
+            raise RuntimeError(f"groups small {name}: no components")
+        log(f"check groups small (3+3, 200 kbp) {name} {' '.join(extra)}: "
+            f"cuda == cpu, {len(got)} files, {len(comps)} components, "
+            f"cuda_s={walls['cuda']:.3f} cpu_s={walls['cpu']:.3f}")
 
 
 def psort_check(label: str, arrs, log_block: int, got) -> dict:
@@ -656,11 +863,14 @@ def main() -> int:
         f"native/fastparse.cpp (g++, build/native/) "
         f"build_s={time.perf_counter() - t0:.2f}")
 
+    log_clocks("phase 2")
     kern = phase_kernel(dev)
     with tempfile.TemporaryDirectory() as td:
         launches, files, res, sample0, native = phase_pipeline(dev, Path(td))
         phase_cli(dev, files, res, native, Path(td))
         del res
+        phase_groups(dev, Path(td))
+        log_clocks("phase psort")
         sort = phase_psort(dev, sample0)
         phase_batch_route(dev, sample0, native, Path(td))
     with tempfile.TemporaryDirectory() as td:

@@ -13,10 +13,15 @@ module names so each piece has an obvious counterpart:
   graph.lookup / dbg        sorted-table lookups, de Bruijn neighbor tables
   graph.contigs             simple-path contigs (Wyllie pointer doubling)
   graph.components          size-window component splitting (hooking)
+  graph.pivot / colored     pivot-anchored and colored components (native
+                            traversals; the pivot index on the device)
   pipeline.matrix           features + Bray-Curtis, the whole pipeline
+  stats                     presence tables, chi-squared and Mann-Whitney
+                            tests (host NumPy)
   io                        the file formats and read parsers
-  tools                     step framework and the ported tools
-  cli                       ``python -m metafast_tpu_torch.cli -t <tool>``
+  tools                     step framework and the 39 tools
+  cli, gui                  ``python -m metafast_tpu_torch.cli -t <tool>``,
+                            ``--gui`` for the wizard
 
 Keys are int64 (k <= 31 keeps them below 2**62) with INT64_MAX as the
 "no k-mer" sentinel.  Every public entry takes an explicit ``device``;

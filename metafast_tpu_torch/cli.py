@@ -6,11 +6,13 @@ registered tool (default matrix-builder), ``--tools`` lists the registry,
 per-tool options come from the tool's declared parameters, and the run is
 checkpointed under ``--work-dir``.
 
+``--gui`` runs the interactive wizard (``gui.py``).
+
 Where it departs from the JAX launcher:
   - ``--device cuda|cpu`` (default cuda) names the device every tool runs
-    on; cuda without a GPU is an error, never a CPU run;
-  - ``--shards`` and ``--gui`` exit 1: multi-device counting and the
-    wizard are not ported yet;
+    on; cuda without a GPU is an error, never a CPU run; the wizard
+    passes it on to the run it starts;
+  - ``--shards`` exits 1: multi-device counting is not ported yet;
   - a device out-of-memory error (``torch.cuda.OutOfMemoryError``) maps to
     advice that fits one device.
 """
@@ -29,7 +31,7 @@ from .tools import framework as fw  # the package import registers the tools
 from .utils.device import resolve_device
 
 DEFAULT_TOOL = "matrix-builder"
-NOT_PORTED = ("shards", "gui")
+NOT_PORTED = ("shards",)
 
 
 def _print_tools() -> None:
@@ -134,6 +136,9 @@ def main(argv: list[str] | None = None) -> int:
     if "--tools" in argv:
         _print_tools()
         return 0
+    if "--gui" in argv:
+        from .gui import run_wizard
+        return run_wizard([a for a in argv if a != "--gui"])
 
     tool_name, opts = parse_args(argv)
     for key in NOT_PORTED:

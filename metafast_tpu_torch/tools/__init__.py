@@ -1,10 +1,9 @@
-"""Tool registry: importing this package registers the ported tools.
+"""Tool registry: importing this package registers the tools.
 
-Counterpart of metafast_tpu/tools/__init__.py.  Ported so far: the
-matrix-builder chain, heatmap-maker, the k-mer filters, the sample
-counters, the converters and comp2graph (23 of the JAX package's 39
-tools).
+Counterpart of metafast_tpu/tools/__init__.py: all 39 of the JAX
+package's tools, from the same eleven modules.
 """
 
-from . import (composite, convert, counter_tools, filter_tools,  # noqa: F401
-               graph_tools, pipeline1)
+from . import (colored_tools, composite, composite2,  # noqa: F401
+               convert, counter_tools, extract_tools, filter_tools,
+               graph_tools, misc_tools, pipeline1, stats_tools)

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from metafast_tpu_torch import cli
+from metafast_tpu_torch.graph import pivot
 from metafast_tpu_torch.core.bitpack import SENTINEL
 from metafast_tpu_torch.io.native_reads import pack_2bit
 from metafast_tpu_torch.ops import psort
@@ -21,7 +22,9 @@ from metafast_tpu_torch.ops.count import (MERGE_CHUNK_BYTES,
                                           MERGE_TABLE_BYTES, KmerCounter,
                                           card_spill)
 from metafast_tpu_torch.pipeline import matrix_pipeline
-from torch_helpers import cuda_device, workdir_tree, write_samples  # noqa: F401
+from metafast_tpu_torch.utils.kmers import sequence_kmers
+from torch_helpers import cuda_device, workdir_tree  # noqa: F401
+from torch_helpers import write_group_samples, write_samples
 
 pytestmark = pytest.mark.cuda
 KS = [1, 11, 16, 17, 31]
@@ -241,3 +244,49 @@ def test_pipeline_gpu_matches_cpu(tmp_path, cuda_device):
         assert np.array_equal(g.kmers, c.kmers)
         assert (g.weight, g.used_freq_threshold) == (
             c.weight, c.used_freq_threshold)
+
+
+@pytest.mark.parametrize("tool", ["stats-features", "unique-features"])
+def test_group_pipelines_gpu_match_cpu(tool, tmp_path, cuda_device):
+    """Pipelines 5 and 2 on the card and on the CPU: the same files; the
+    card's run launches the extraction kernel once a sample at least."""
+    files, _ = write_group_samples(tmp_path, ["pos"] * 3 + ["neg"] * 3,
+                                   16_000, 5_000, 3_000, 12, seed=14)
+    extra = {"stats-features": [],
+             "unique-features": ["--min-samples", "2", "--max-samples", "3"]}
+    trees = {}
+    for dev in ("cuda", "cpu"):
+        before = TSE.stream_extract.launches
+        assert cli.main(["-t", tool, "-k", "31", "-pos", *files[:3],
+                         "-neg", *files[3:], *extra[tool],
+                         "-w", str(tmp_path / dev), "--device", dev]) == 0
+        launched = TSE.stream_extract.launches - before
+        assert launched >= 6 if dev == "cuda" else launched == 0
+        trees[dev] = workdir_tree(tmp_path / dev)
+    assert "component-extractor/components.bin" in trees["cpu"]
+    assert trees["cuda"] == trees["cpu"]
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_pivot_on_gpu_matches_cpu(depth, cuda_device):
+    """The pivot graph's neighbour index on the card equals the CPU's, and
+    so do the components the Python traversal finds over it."""
+    rng = np.random.default_rng(depth)
+    shared = "".join(rng.choice(list("ACGT"), 2_000))
+    keys = np.unique(np.concatenate([
+        sequence_kmers("".join(rng.choice(list("ACGT"), 3_000)) + shared
+                       + "".join(rng.choice(list("ACGT"), 3_000)), 31)
+        for _ in range(3)]))
+    counts = rng.integers(2, 9, len(keys))
+    pivots = rng.choice(keys, 300, replace=False)
+    got = pivot.neighbor_index(torch.from_numpy(keys).to(cuda_device), 31)
+    want = pivot.neighbor_index(torch.from_numpy(keys), 31)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    gc = pivot.split_around_pivot(keys, counts, 31, pivots, depth,
+                                  device=cuda_device, force_python=True)
+    cc = pivot.split_around_pivot(keys, counts, 31, pivots, depth,
+                                  device="cpu", force_python=True)
+    assert len(gc) == len(cc) > 0
+    for g, c in zip(gc, cc):
+        assert np.array_equal(g.kmers, c.kmers)
+        assert (g.weight, g.n_pivot) == (c.weight, c.n_pivot)

@@ -19,7 +19,7 @@ import pytest
 from metafast_tpu.pipeline import matrix_pipeline as jax_pipeline
 from metafast_tpu_torch.api import write_binq
 from metafast_tpu_torch.pipeline import matrix_pipeline
-from torch_helpers import write_samples
+from torch_helpers import write_group_samples, write_samples
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -75,7 +75,7 @@ from metafast_tpu_torch import api
 from metafast_tpu_torch.core import extract
 from metafast_tpu_torch.ops import psort
 from metafast_tpu_torch.pipeline import matrix_pipeline
-binq, files = sys.argv[1], sys.argv[2:]
+binq, files, groups = sys.argv[1], sys.argv[2:4], sys.argv[4:]
 res = matrix_pipeline(files, k=21, b=1, l=60, b1=20, b2=5000, device="cpu")
 assert res.matrix.shape == (len(files), len(files))
 assert len(res.components) >= 1
@@ -101,6 +101,11 @@ for tool in (["unique-kmers", "-i", kb[0], "--filter-kmers", kb[1]],
              ["comp2graph", "-cf", comps]):
     assert cli.main(["-t", *tool, "-k", "21", "-w", str(wd / tool[0]),
                      "--device", "cpu"]) == 0, tool[0]
+# pipeline 5, which runs the group-comparison modules (stats, pivot)
+assert cli.main(["-t", "stats-features", "-k", "21", "-pos", *groups[:2],
+                 "-neg", *groups[2:], "-pmw", "0.2", "-w", str(wd / "sf"),
+                 "--device", "cpu"]) == 0
+assert list((wd / "sf" / "features-calculator" / "vectors").glob("*.vec"))
 assert not any(m == "jax" or m.startswith("jax.") for m, v in
                sys.modules.items() if v is not None)
 assert not any(m == "metafast_tpu" or m.startswith("metafast_tpu.")
@@ -111,11 +116,14 @@ print("ok", len(res.components))
 
 def test_port_runs_without_jax(tmp_path):
     files = write_samples(tmp_path, 2, 3000, 1000, 8, read_len=100, seed=5)
+    groups, _ = write_group_samples(tmp_path, ["pos", "pos", "neg", "neg"],
+                                    4000, 1000, 1000, 10, read_len=100, seed=5)
     rng = np.random.default_rng(5)
     binq = write_binq(tmp_path / "reads.binq",
                       rng.integers(0, 4, 100 * 60, dtype=np.uint8),
                       np.full(100, 60, np.int32))
-    proc = subprocess.run([sys.executable, "-c", _NO_JAX, binq, *files],
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX, binq, *files,
+                           *groups],
                           cwd=REPO, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -150,6 +158,11 @@ def test_port_modules_import_no_jax_package():
     or inside a function: it keeps its own copies of the host modules."""
     files = sorted((REPO / "metafast_tpu_torch").rglob("*.py"))
     assert len(files) > 40
+    scanned = {str(f.relative_to(REPO / "metafast_tpu_torch")) for f in files}
+    assert {"gui.py", "graph/pivot.py", "graph/colored.py", "stats/tests.py",
+            "tools/stats_tools.py", "tools/composite2.py",
+            "tools/extract_tools.py", "tools/misc_tools.py",
+            "tools/colored_tools.py"} <= scanned
     bad = {str(f.relative_to(REPO)): tops & {"jax", "metafast_tpu"}
            for f in files if (tops := _imported_top_levels(f))
            & {"jax", "metafast_tpu"}}

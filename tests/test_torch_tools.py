@@ -8,7 +8,6 @@ paths that manifests record; paths inside files are compared relative
 to each run's working directory.
 """
 
-import json
 import logging
 import re
 from pathlib import Path
@@ -25,12 +24,13 @@ from metafast_tpu.pipeline import matrix as jax_matrix
 from metafast_tpu_torch import api, cli
 from metafast_tpu_torch.graph.components import Component
 from metafast_tpu_torch.pipeline import matrix
+from torch_helpers import assert_same_tree, write_samples
 from torch_helpers import workdir_tree as _tree
-from torch_helpers import write_samples
 
 K = 31
 SIZES = ["-b1", "100", "-b2", "3000"]
-PORTED = {
+# the tools driven here, over the files of a matrix-builder run
+CHAIN_TOOLS = {
     "kmer-counter", "kmer-counter-many", "seq-builder", "seq-builder-many",
     "component-cutter", "features-calculator", "dist-matrix-calculator",
     "heatmap-maker", "matrix-builder",
@@ -41,6 +41,17 @@ PORTED = {
     "view", "double-view", "bin2fasta", "seq2comp", "comp2seq",
     "comp2graph",
 }
+# the group-comparison tools, driven over sample groups in
+# test_torch_group_tools.py and test_torch_group_pipelines.py
+GROUP_TOOLS = {
+    "stats-kmers", "stats-kmers-3", "bitset-stats-kmers-3",
+    "specific-kmers", "specific-kmers-3", "top-stats-kmers",
+    "subset-specific", "unique-features", "stats-features",
+    "component-extractor", "component-paths", "comparison-script",
+    "antibody-sequences-finder", "supergraph-sequence-builder",
+    "kmers-color", "component-colored",
+}
+PORTED = CHAIN_TOOLS | GROUP_TOOLS
 
 
 def _run(main, args, wd, *extra):
@@ -53,21 +64,6 @@ def run_both(args, root: Path, name: str):
     assert _run(jax_cli.main, args, jwd) == 0
     assert _run(cli.main, args, pwd, "--device", "cpu") == 0
     return jwd, pwd
-
-
-def assert_same_tree(jwd: Path, pwd: Path) -> dict:
-    want, got = _tree(jwd), _tree(pwd)
-    assert sorted(got) == sorted(want)
-    for rel, data in want.items():
-        if rel.endswith((".png", ".svg")):
-            continue
-        if rel.endswith("manifest.json"):
-            w, g = json.loads(data), json.loads(got[rel])
-            assert (g["tool"], g["inputs"]) == (w["tool"], w["inputs"]), rel
-            assert sorted(g["outputs"]) == sorted(w["outputs"]), rel
-            continue
-        assert got[rel] == data, rel
-    return want
 
 
 @pytest.fixture(scope="module")
@@ -157,7 +153,7 @@ def _tool_args(name: str, b: dict, out: Path) -> list[str]:
     }[name]
 
 
-@pytest.mark.parametrize("name", sorted(PORTED - {"matrix-builder"}))
+@pytest.mark.parametrize("name", sorted(CHAIN_TOOLS - {"matrix-builder"}))
 def test_tool_matches_jax(name, built, tmp_path):
     outs = {}
     for side, main, extra in (("jax", jax_cli.main, []),
@@ -183,7 +179,7 @@ def test_tools_lists_the_ported_tools(capsys):
 
     got = names(cli.main)
     assert got == PORTED
-    assert got < names(jax_cli.main)
+    assert got == names(jax_cli.main) and len(got) == 39
 
 
 def test_tool_help_matches_jax(capsys):
@@ -205,7 +201,7 @@ def test_unknown_option_exits_1(built, tmp_path):
     assert _run(cli.main, args, tmp_path / "p", "--device", "cpu") == 1
 
 
-@pytest.mark.parametrize("opt", [["--shards", "2"], ["--gui"]])
+@pytest.mark.parametrize("opt", [["--shards", "2"], ["--shards", "1"]])
 def test_not_ported_options_exit_1(built, tmp_path, capsys, opt):
     assert cli.main(["-k", str(K), "-i", built["files"][0], "-w",
                      str(tmp_path), "--device", "cpu", *opt]) == 1

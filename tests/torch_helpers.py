@@ -1,5 +1,6 @@
 """Shared pieces of the tests of the PyTorch port (metafast_tpu_torch)."""
 
+import json
 import re
 
 import numpy as np
@@ -37,6 +38,34 @@ def write_samples(directory, n_samples, genome_len, shared_len, coverage,
     return files
 
 
+def write_group_samples(directory, groups, genome_len, shared_len,
+                        marker_len, coverage, read_len=150, seed=0):
+    """FASTA read sets of genomes that share a backbone, with a marker
+    region shared by the samples of each group: sample s, of group
+    ``groups[s]``, reads backbone + its group's marker + a private rest.
+    Returns (file paths, genomes as bytes)."""
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    backbone = bases[rng.integers(0, 4, shared_len)]
+    markers = {g: bases[rng.integers(0, 4, marker_len)]
+               for g in sorted(set(groups))}
+    files, genomes = [], []
+    for s, g in enumerate(groups):
+        private = genome_len - shared_len - marker_len
+        genome = np.concatenate([backbone, markers[g],
+                                 bases[rng.integers(0, 4, private)]])
+        n_reads = genome_len * coverage // read_len
+        starts = rng.integers(0, genome_len - read_len, n_reads)
+        reads = genome[starts[:, None] + np.arange(read_len)[None, :]]
+        path = directory / f"{g}_{s}.fa"
+        with open(path, "wb") as fh:
+            for i in range(n_reads):
+                fh.write(b">r%d\n%s\n" % (i, reads[i].tobytes()))
+        files.append(str(path))
+        genomes.append(genome.tobytes())
+    return files, genomes
+
+
 _TS = re.compile(rb"\d{4}-\d{2}-\d{2}_\d{2}-\d{2}-\d{2}")
 
 
@@ -53,3 +82,21 @@ def workdir_tree(wd):
         out[key] = _TS.sub(b"<ts>", p.read_bytes().replace(
             str(wd).encode(), b"<wd>"))
     return out
+
+
+def assert_same_tree(jwd, pwd) -> dict:
+    """Two CLI working directories hold the same files, byte for byte,
+    apart from the heatmap images (only their names) and the manifests'
+    outputs (only their names); returns the first as a tree."""
+    want, got = workdir_tree(jwd), workdir_tree(pwd)
+    assert sorted(got) == sorted(want)
+    for rel, data in want.items():
+        if rel.endswith((".png", ".svg")):
+            continue
+        if rel.endswith("manifest.json"):
+            w, g = json.loads(data), json.loads(got[rel])
+            assert (g["tool"], g["inputs"]) == (w["tool"], w["inputs"]), rel
+            assert sorted(g["outputs"]) == sorted(w["outputs"]), rel
+            continue
+        assert got[rel] == data, rel
+    return want
