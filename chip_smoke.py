@@ -21,6 +21,16 @@ Phases (any failure raises and exits non-zero):
      components.bin equal phase 3's written by the same writers, and
      sample 0's .kmers.bin the native table at count > 1.  A rerun with
      ``-c`` must skip every step and launch nothing.
+  shards. The multi-device path at world size 1 (one card), over NCCL in
+     this process, on phase 3's data: (a) count_reads_files_sharded of
+     every sample equals count_reads_files and phase 3's table (timed
+     per sample against both, K1 launches counted from 0); (b)
+     sharded_doubling on sample 0's successor forest equals _doubling;
+     (c) the star contraction (sharded_connected_labels) on the level-1
+     recount graph equals the hooking labels, both timed; (d) the
+     --shards launcher: one rank more than the GPUs exits 1 with the JAX
+     message, and 2 CPU ranks (gloo) write the files of the unsharded
+     run on the card (2 samples of 200 kbp).
   groups. Pipelines 5 and 2 (``-t stats-features`` and ``-t
      unique-features --min-samples 4 --max-samples 4``) through the
      launcher on 8 such samples (seed 0) where samples 0-3, the positive
@@ -55,7 +65,9 @@ Phases (any failure raises and exits non-zero):
      PyTorch versions) at 3 samples of 200 kbp: every field equal.
 
 Prints one JSON line of kernel results (each with its bound: the bytes
-it must move over the H100's 3.35 TB/s), the card's name and power
+it must move over the H100's 3.35 TB/s; the extraction kernel's
+launches summed over phases 3 and shards, with each path's count under
+``launches_by_path``), the card's name and power
 limit, and last {"ok": true, "device": {...}}.
 """
 
@@ -324,7 +336,7 @@ def phase_pipeline(dev, workdir: Path):
                            f"BFS {n_native}")
     log(f"check level-1 components == native bfs_components_baseline: "
         f"{n_level1} over {gkeys.numel()} keys")
-    return launches, files, res, (codes, lengths), (nkeys, ncounts)
+    return launches, files, res, (codes, lengths), (nkeys, ncounts), stages
 
 
 CLI_STEPS = ["kmer-counter-many", "seq-builder-many", "component-cutter",
@@ -403,6 +415,147 @@ def phase_cli(dev, files, res, native, workdir: Path) -> None:
     if skipped != CLI_STEPS or ran != ["matrix-builder"] or launches_c:
         raise RuntimeError(f"cli -c: skipped {skipped}, started {ran}, "
                            f"{launches_c} launches")
+
+
+def timed(dev, fn):
+    """(fn's result, seconds on the host clock, device synchronised)."""
+    from metafast_tpu_torch.utils.device import synchronize
+
+    synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    synchronize(dev)
+    return out, time.perf_counter() - t0
+
+
+def phase_shards(dev, files, res, native, count_s: float,
+                 workdir: Path) -> int:
+    """Phase shards: the multi-device path at world size 1 (one card),
+    over NCCL in this process: (a) count_reads_files_sharded on every
+    stress sample against phase 3's tables, timed against the
+    single-device count; (b) sharded_doubling on sample 0's successor
+    forest against _doubling; (c) the star contraction on the level-1
+    recount graph against the hooking labels; (d) the --shards launcher:
+    2 ranks exceed the one card, and 2 CPU ranks write the work dir of
+    the unsharded run on the card.  Returns K1's launches in (a)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from metafast_tpu_torch import api, cli
+    from metafast_tpu_torch.graph import components as comp
+    from metafast_tpu_torch.graph import contigs, dbg
+    from metafast_tpu_torch.ops import stream_extract as SE
+    from metafast_tpu_torch.parallel import distributed as D
+    from metafast_tpu_torch.parallel.components import (
+        sharded_connected_labels)
+    from metafast_tpu_torch.parallel.contigs import sharded_doubling
+    from metafast_tpu_torch.pipeline.matrix import count_contig_kmers
+
+    t_phase = time.perf_counter()
+    mesh, init_s = timed(dev, lambda: D.initialize(
+        1, 0, f"file://{workdir / 'store'}", dev.type))
+    # the communicator is made at the first collective: time it apart
+    _, first_s = timed(dev, lambda: D.all_reduce(mesh, 0))
+    log(f"shards: world size {mesh.size}, backend "
+        f"{torch.distributed.get_backend()}, device {mesh.device}: "
+        f"init_s={init_s:.4f} first_collective_s={first_s:.4f}")
+
+    # (a) every sample through the sharded route, against phase 3
+    single_s, sharded_s = [], []
+    launches = 0
+    for i, path in enumerate(files):
+        SE.stream_extract.launches = 0
+        (keys, counts, stats), sec = timed(dev, lambda: (
+            api.count_reads_files_sharded([path], K, mesh)))
+        launches += SE.stream_extract.launches
+        sharded_s.append(sec)
+        (skeys, scounts, sstats), sec = timed(dev, lambda: (
+            api.count_reads_files([path], K, dev)))
+        single_s.append(sec)
+        keep = counts > 1
+        fk, fc = res.sample_tables[i]
+        if not (torch.equal(keys, skeys) and torch.equal(counts, scounts)
+                and stats == sstats
+                and np.array_equal(keys[keep].cpu().numpy(), fk)
+                and np.array_equal(counts[keep].cpu().numpy(), fc)):
+            raise RuntimeError(f"shards (a): sample {i} sharded table != "
+                               "single-device / phase 3 table")
+        if i == 0 and not (np.array_equal(keys.cpu().numpy(), native[0])
+                           and np.array_equal(counts.cpu().numpy(),
+                                              native[1])):
+            raise RuntimeError("shards (a): sample 0 != native table")
+    if launches < len(files):
+        raise RuntimeError(f"shards (a): {launches} K1 launches for "
+                           f"{len(files)} samples")
+    log(f"shards (a) count_reads_files_sharded == count_reads_files == "
+        f"phase 3 tables, {len(files)} samples: sharded_s_per_sample="
+        f"{np.mean(sharded_s):.4f} (max {max(sharded_s):.4f}) "
+        f"single_s_per_sample={np.mean(single_s):.4f} (max "
+        f"{max(single_s):.4f}) phase3_count_s_per_sample="
+        f"{count_s / len(files):.4f} launches={launches}")
+
+    # (b) sample 0's successor forest
+    keys, counts = (torch.from_numpy(a).to(dev) for a in res.sample_tables[0])
+    t = dbg.neighbor_tables(keys, K)
+    succ, _, _ = contigs._succ_from_tables(keys, t["left"], t["right"], K)
+    want, single = timed(dev, lambda: contigs._doubling(succ))
+    got, sharded = timed(dev, lambda: sharded_doubling(succ, mesh))
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise RuntimeError("shards (b): sharded_doubling != _doubling")
+    log(f"shards (b) sharded_doubling == _doubling over {succ.numel()} "
+        f"nodes: sharded_s={sharded:.4f} single_s={single:.4f}")
+
+    # (c) the level-1 recount graph: star contraction against hooking
+    seqs = [s[0] for c in res.contigs_per_sample for s in c]
+    gkeys, _ = count_contig_kmers(seqs, K, dev, min_len=100)
+    nbr = comp.adjacency(gkeys, K)
+    active = torch.ones(gkeys.numel(), dtype=torch.bool, device=dev)
+    want, hooking = timed(dev, lambda: comp.connected_labels(nbr, active))
+    got, star = timed(dev, lambda: sharded_connected_labels(nbr, active,
+                                                            mesh))
+    if not torch.equal(got, want):
+        raise RuntimeError("shards (c): star contraction != hooking labels")
+    log(f"shards (c) sharded_connected_labels == connected_labels over "
+        f"{gkeys.numel()} keys, {int(torch.unique(got).numel())} "
+        f"components: star_s={star:.4f} hooking_s={hooking:.4f}")
+    D.shutdown()
+    del nbr, active, got, want
+
+    # (d) the launcher
+    small = workdir / "shards_small"
+    small.mkdir()
+    sfiles = write_samples(small, 2, 200_000, 80_000, 12, seed=4)
+    args = ["-k", str(K), "-i", *sfiles, "-b", "1", "-l", "100", "-b1",
+            "1000", "-b2", "10000", "--finish", "dist-matrix-calculator"]
+    gpus = torch.cuda.device_count()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main([*args, "-w", str(small / "over"), "--shards",
+                       str(gpus + 1), "--device", "cuda"])
+    want_msg = f"ERROR: --shards {gpus + 1} exceeds available devices ({gpus})"
+    if rc != 1 or want_msg not in out.getvalue() or (small / "over").exists():
+        raise RuntimeError(f"shards (d): --shards {gpus + 1} --device cuda "
+                           f"exited {rc}: {out.getvalue()!r}")
+    rc_sharded, sharded = timed(dev, lambda: cli.main(
+        [*args, "-w", str(small / "cpu2"), "--shards", "2",
+         "--device", "cpu"]))
+    rc_single, single = timed(dev, lambda: cli.main(
+        [*args, "-w", str(small / "cuda1"), "--device", "cuda"]))
+    got = workdir_tree(small / "cpu2")
+    want = workdir_tree(small / "cuda1")
+    if rc_sharded or rc_single or got != want or not got:
+        differ = sorted(set(got) ^ set(want)) or [
+            r for r in want if got.get(r) != want[r]]
+        raise RuntimeError(f"shards (d): --shards 2 --device cpu != "
+                           f"unsharded cuda in {differ[:5]}")
+    log(f"shards (d) --shards {gpus + 1} --device cuda exits 1 on {gpus} "
+        f"GPU(s); --shards 2 --device cpu "
+        f"(2 x 200 kbp) == unsharded --device cuda, {len(got)} files: "
+        f"shards_cpu_s={sharded:.3f} single_cuda_s={single:.3f}")
+    log(f"shards phase_s={time.perf_counter() - t_phase:.3f}")
+    return launches
 
 
 GROUP_RUNS = {
@@ -866,8 +1019,12 @@ def main() -> int:
     log_clocks("phase 2")
     kern = phase_kernel(dev)
     with tempfile.TemporaryDirectory() as td:
-        launches, files, res, sample0, native = phase_pipeline(dev, Path(td))
+        launches, files, res, sample0, native, stages = phase_pipeline(
+            dev, Path(td))
         phase_cli(dev, files, res, native, Path(td))
+        log_clocks("phase shards")
+        shard_launches = phase_shards(dev, files, res, native,
+                                      stages["count"], Path(td))
         del res
         phase_groups(dev, Path(td))
         log_clocks("phase psort")
@@ -882,7 +1039,8 @@ def main() -> int:
         "source": "metafast_tpu_torch/csrc/stream_extract.cu",
         "replaces": "metafast_tpu/ops/stream_extract.py:389 (_kernel3); "
                     "metafast_tpu/ops/stream_extract.py:122 (_kernel)",
-        "launches": launches,
+        "launches": launches + shard_launches,
+        "launches_by_path": {"pipeline": launches, "shards": shard_launches},
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"],
         "plain_ms": kern["plain_ms"],

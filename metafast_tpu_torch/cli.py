@@ -8,30 +8,49 @@ checkpointed under ``--work-dir``.
 
 ``--gui`` runs the interactive wizard (``gui.py``).
 
+``--shards n`` (n > 1) runs the tool as n ranks of one process group
+(``parallel.distributed.launch``), each a process running this same
+command in lockstep: ``cuda:<rank>`` over NCCL with ``--device cuda``, the
+CPU over gloo with ``--device cpu``.  Counting and component labels run
+over the mesh; the other stages, contig ranking among them, run
+replicated.
+Only rank 0 logs to the console and writes the work dir the user named;
+the others write into a temporary work dir removed at exit, and follow
+rank 0's ``--continue`` / ``--start`` decisions (tools/framework.py).
+The exit code is the worst of the ranks', and a failing rank stops the
+others.
+
 Where it departs from the JAX launcher:
   - ``--device cuda|cpu`` (default cuda) names the device every tool runs
     on; cuda without a GPU is an error, never a CPU run; the wizard
     passes it on to the run it starts;
-  - ``--shards`` exits 1: multi-device counting is not ported yet;
+  - a JAX mesh lives in one process, so ``--shards`` there needs no
+    launcher; ``--shards`` above the GPU count exits 1 with ``--device
+    cuda`` as in JAX, while ``--device cpu`` takes any n;
   - a device out-of-memory error (``torch.cuda.OutOfMemoryError``) maps to
     advice that fits one device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
+import os
+import shutil
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import torch
 
 from . import __version__
+from . import api
+from .parallel import distributed as D
 from .tools import framework as fw  # the package import registers the tools
 from .utils.device import resolve_device
 
 DEFAULT_TOOL = "matrix-builder"
-NOT_PORTED = ("shards",)
 
 
 def _print_tools() -> None:
@@ -55,13 +74,16 @@ def _print_help(tool_cls) -> None:
     print("  -c --continue    continue the previous run (checkpointed steps)")
     print("     --force       rewrite the working directory")
     print("     --device DEV  device to run on: cuda or cpu (default: cuda)")
+    print("     --shards N    run as N ranks, one device each (cuda: one GPU "
+          "a rank)")
     print("     --start NAME  start from this step")
     print("     --finish NAME stop after this step")
     print("  -v --verbose     enable debug output")
     print("  -h --help        this help")
 
 
-def _setup_logging(workdir: Path, verbose: bool) -> logging.Logger:
+def _setup_logging(workdir: Path, verbose: bool,
+                   console_level: int = logging.NOTSET) -> logging.Logger:
     logger = logging.getLogger(fw.LOGGER)
     logger.setLevel(logging.DEBUG if verbose else logging.INFO)
     for h in list(logger.handlers):
@@ -69,6 +91,7 @@ def _setup_logging(workdir: Path, verbose: bool) -> logging.Logger:
         h.close()
     fmt = logging.Formatter("%(asctime)s %(levelname)-5s %(message)s")
     con = logging.StreamHandler()
+    con.setLevel(console_level)
     con.setFormatter(fmt)
     logger.addHandler(con)
     workdir.mkdir(parents=True, exist_ok=True)
@@ -141,10 +164,9 @@ def main(argv: list[str] | None = None) -> int:
         return run_wizard([a for a in argv if a != "--gui"])
 
     tool_name, opts = parse_args(argv)
-    for key in NOT_PORTED:
-        if key in opts:
-            print(f"ERROR: --{key} is not ported yet", file=sys.stderr)
-            return 1
+    shards = opts.pop("shards", None)
+    if shards is not None and int(_scalar(shards)) > 1:
+        return _launch_shards(argv, int(_scalar(shards)), opts)
     try:
         tool_cls = fw.get_tool(tool_name or DEFAULT_TOOL)
     except KeyError as e:
@@ -161,6 +183,19 @@ def main(argv: list[str] | None = None) -> int:
         print(f"ERROR: {e}", file=sys.stderr)
         return 1
     workdir = Path(str(_scalar(opts.pop("w", opts.pop("work-dir", ["workDir"])))))
+    ranked = D.rank_from_env()
+    if ranked is None:
+        return _run_tool(tool_cls, opts, device, workdir)
+    with _as_rank(ranked, device, workdir) as (device, own, console):
+        mirror = None if own == workdir else workdir
+        return _run_tool(tool_cls, opts, device, own, console, mirror)
+
+
+def _run_tool(tool_cls, opts: dict, device: torch.device, workdir: Path,
+              console_level: int = logging.NOTSET,
+              mirror: Path | None = None) -> int:
+    """Run one tool with the launch options left in ``opts`` (``mirror``:
+    rank 0's work dir, on a rank above 0 of a --shards run)."""
     cont = bool(opts.pop("c", False) or opts.pop("continue", False))
     force = bool(opts.pop("force", False))
     start = opts.pop("start", None)
@@ -170,12 +205,13 @@ def main(argv: list[str] | None = None) -> int:
     for key in ("p", "available-processors", "m", "memory", "ea", "eta"):
         opts.pop(key, None)
 
-    logger = _setup_logging(workdir, verbose)
+    logger = _setup_logging(workdir, verbose, console_level)
     ctx = fw.RunContext(workdir=workdir, cont=cont, force=force,
                         start=_scalar(start) if start else None,
                         finish=_scalar(finish) if finish else None,
                         verbose=verbose, device=device, logger=logger,
-                        desc_files=[workdir / "output_description.txt"])
+                        desc_files=[workdir / "output_description.txt"],
+                        mirror=mirror)
 
     tool = tool_cls()
     # map remaining options onto tool params (short or long)
@@ -215,6 +251,54 @@ def main(argv: list[str] | None = None) -> int:
                      "%s", workdir / "log")
         return 1
     return 0
+
+
+def _without_shards(argv: list[str]) -> list[str]:
+    """argv with its --shards option and value taken out."""
+    out, skip = [], False
+    for a in argv:
+        if a.lstrip("-") == "shards" and a.startswith("-"):
+            skip = True
+            continue
+        if skip and not (a.startswith("-") and not _is_number(a)):
+            continue
+        skip = False
+        out.append(a)
+    return out
+
+
+def _launch_shards(argv: list[str], n: int, opts: dict) -> int:
+    """``--shards n``: n ranks of this command (parallel.distributed)."""
+    device = str(_scalar(opts.get("device", "cuda")))
+    if torch.device(device).type == "cuda":
+        have = torch.cuda.device_count()
+        if n > have:
+            print(f"ERROR: --shards {n} exceeds available devices ({have})")
+            return 1
+    return D.launch(_without_shards(argv), n)
+
+
+@contextlib.contextmanager
+def _as_rank(ranked, device: torch.device, workdir: Path):
+    """One rank of a ``--shards`` run: join the group and set the default
+    mesh; yields (the rank's device, its work dir, its console log
+    level).  Ranks above 0 work in a temporary work dir, removed at exit,
+    and log only errors to the console."""
+    rank, world, store = ranked
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // (2 * world)))
+    mesh = D.initialize(world, rank, store, device.type)
+    api.set_default_mesh(mesh)
+    scratch = None if rank == 0 else tempfile.mkdtemp(prefix="metafast-rank-")
+    try:
+        if scratch is None:
+            yield mesh.device, workdir, logging.NOTSET
+        else:
+            yield mesh.device, Path(scratch), logging.ERROR
+    finally:
+        api.set_default_mesh(None)
+        D.shutdown()
+        if scratch is not None:
+            shutil.rmtree(scratch, ignore_errors=True)
 
 
 _OOM_ADVICE = (

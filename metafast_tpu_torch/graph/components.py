@@ -14,8 +14,10 @@ old root, and compresses twice, until a round changes nothing.
 
 Emitted components are sorted by (usedFreqThreshold asc, weight desc,
 size desc, smallest member key), as ConnectedComponent.compareTo with a
-deterministic tie order.  The JAX package's walk/star-contraction label
-paths are not ported: its pipeline never reaches them.
+deterministic tie order.  With a default mesh the labels come from the
+sharded star contraction instead (parallel/components.py).  The JAX
+package's single-device walk/star-contraction label paths are not ported:
+its pipeline never reaches them.
 """
 
 from __future__ import annotations
@@ -95,9 +97,23 @@ def split_components(keys: torch.Tensor, counts: torch.Tensor, k: int,
 
     keys: [M] sorted canonical int64 keys; counts: [M] int32, on one
     device.  Labels are computed on the device; the per-level bookkeeping
-    runs on the host.
+    runs on the host.  With a default mesh of more than one rank
+    (api.set_default_mesh) the labels come from the sharded star
+    contraction (parallel/components.py).
     """
+    from .. import api
+
     device = keys.device
+    mesh = api.get_default_mesh()
+    labels_fn = connected_labels
+    if mesh is not None and mesh.size > 1:
+        # the edge-cut star contraction over the mesh
+        # (parallel/components.py), as metafast_tpu/graph/components.py
+        # :572-579
+        from ..parallel.components import sharded_connected_labels
+
+        def labels_fn(nbr, active):
+            return sharded_connected_labels(nbr, active, mesh)
     keys64 = keys.cpu().numpy()
     counts_all = counts.cpu().numpy().astype(np.int64)
     M = len(keys64)
@@ -120,7 +136,7 @@ def split_components(keys: torch.Tensor, counts: torch.Tensor, k: int,
             nbr = None
         if nbr is None:
             nbr = adjacency(torch.from_numpy(keys64).to(device), k)
-        labels = connected_labels(
+        labels = labels_fn(
             nbr, torch.from_numpy(active).to(device)).cpu().numpy()
         act_idx = np.nonzero(active)[0]
         roots = labels[act_idx]

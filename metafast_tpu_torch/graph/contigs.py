@@ -111,7 +111,11 @@ def chain_structure(keys: torch.Tensor, k: int):
     """Successor function + list ranking over oriented k-mer nodes.
 
     Returns a dict of [2M] tensors: term, dist, reached, is_start,
-    last_nuc (see metafast_tpu/graph/contigs.py chain_structure).
+    last_nuc (see metafast_tpu/graph/contigs.py chain_structure).  Under a
+    default mesh every rank holds the whole ``succ`` already, so each runs
+    ``_doubling`` itself: the row-sharded ranking
+    (parallel/contigs.sharded_doubling) would gather the same full result
+    back to every rank, and is kept off this route.
     """
     t = dbg.neighbor_tables(keys, k)
     succ, is_start, last_nuc = _succ_from_tables(keys, t["left"],

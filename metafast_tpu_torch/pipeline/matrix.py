@@ -111,8 +111,7 @@ def feature_vectors(components: list[comp_mod.Component],
     sizes = torch.tensor([c.size for c in components], dtype=torch.int64,
                          device=dev)
     allk = torch.cat([c.kmers for c in components])
-    idx = torch.searchsorted(keys, allk).clamp_(max=keys.numel() - 1)
-    pres = torch.where(keys[idx] == allk, counts[idx].to(torch.int64), 0)
+    pres = api.presence_counts(allk, keys, counts)
     hit = pres > threshold
     seg = torch.repeat_interleave(torch.arange(C, device=dev), sizes)
     vec.index_add_(0, seg, torch.where(hit, pres, 0))

@@ -20,6 +20,13 @@ Parameter.java, ParameterDescription.java):
 One addition: ``RunContext.device``, the torch device every tool runs on.
 It is a launch option, not a tool Param, so the declared parameters, the
 ``-h`` text and the manifests' ``inputs`` are the JAX package's.
+
+Under ``--shards`` every rank runs the same steps, and only rank 0 works
+in the user's work dir; a rank above 0 works in a temporary one and
+names rank 0's in ``RunContext.mirror``.  Whether a step is skipped is
+rank 0's decision, shared by one all_reduce, and the outputs of a
+skipped step are read from rank 0's work dir, so every rank reaches the
+same collectives.
 """
 
 from __future__ import annotations
@@ -84,6 +91,8 @@ class RunContext:
     logger: logging.Logger = field(
         default_factory=lambda: logging.getLogger(LOGGER))
     desc_files: list[Path] = field(default_factory=list)
+    # rank 0's work dir, on a rank above 0 of a --shards run
+    mirror: Path | None = None
     _started: bool = field(default=False)  # for --start gating
 
 
@@ -258,13 +267,14 @@ class Tool:
         for step, sd in zip(self.steps, self._step_dirs()):
             if not self._step_in_range(step.NAME):
                 # before --start: load recorded outputs so later steps work
-                self._load_step_outputs(step, sd)
+                self._load_step_outputs(step, self._recorded(sd))
                 ctx.logger.info("[%s] skipped (before --start)", step.NAME)
                 continue
-            if self._can_skip(step, sd) and step.NAME != ctx.start:
-                # the named --start step always reruns, even with an
-                # up-to-date manifest: starting *from* it is the request
-                self._load_step_outputs(step, sd)
+            # the named --start step always reruns, even with an
+            # up-to-date manifest: starting *from* it is the request
+            if self._agree(self._can_skip(step, sd)
+                           and step.NAME != ctx.start):
+                self._load_step_outputs(step, self._recorded(sd))
                 ctx.logger.info("[%s] up to date, skipped", step.NAME)
             else:
                 if sd.exists() and not ctx.cont:
@@ -281,6 +291,25 @@ class Tool:
                         nxt.unlink()
                 ctx.logger.info("stopping after --finish=%s", step.NAME)
                 break
+
+    def _recorded(self, sd: Path) -> Path:
+        """Where step dir ``sd``'s recorded state lives: ``sd``, or on a
+        rank above 0 of a --shards run, its twin in rank 0's work dir."""
+        mirror = self.ctx.mirror
+        return sd if mirror is None else mirror / sd.relative_to(
+            self.ctx.workdir)
+
+    @staticmethod
+    def _agree(skip: bool) -> bool:
+        """Rank 0's ``skip`` on every rank of the default mesh."""
+        from .. import api
+
+        mesh = api.get_default_mesh()
+        if mesh is None or mesh.size == 1:
+            return skip
+        from ..parallel.distributed import all_reduce
+
+        return bool(all_reduce(mesh, int(skip and mesh.rank == 0), "max"))
 
     def _can_skip(self, step: "Tool", sd: Path) -> bool:
         ctx = self.ctx

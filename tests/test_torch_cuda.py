@@ -290,3 +290,42 @@ def test_pivot_on_gpu_matches_cpu(depth, cuda_device):
     for g, c in zip(gc, cc):
         assert np.array_equal(g.kmers, c.kmers)
         assert (g.weight, g.n_pivot) == (c.weight, c.n_pivot)
+
+
+def test_world1_nccl_group_matches_single_device(tmp_path, cuda_device):
+    """The multi-device path in a one-rank NCCL group on the card: the
+    sharded count, doubling and star contraction equal the single-device
+    functions, and the counting route launches K1."""
+    from metafast_tpu_torch import api
+    from metafast_tpu_torch.graph import components as comp
+    from metafast_tpu_torch.graph import contigs, dbg
+    from metafast_tpu_torch.parallel import distributed as D
+    from metafast_tpu_torch.parallel.components import (
+        sharded_connected_labels)
+    from metafast_tpu_torch.parallel.contigs import sharded_doubling
+
+    files = write_samples(tmp_path, 2, 30_000, 10_000, 12, seed=3)
+    mesh = D.initialize(1, 0, f"file://{tmp_path / 'store'}", "cuda")
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        assert mesh.device.type == "cuda" and mesh.size == 1
+        before = TSE.stream_extract.launches
+        keys, counts, stats = api.count_reads_files_sharded(files, 31, mesh)
+        assert TSE.stream_extract.launches > before
+        wk, wc, wstats = api.count_reads_files(files, 31, cuda_device)
+        assert torch.equal(keys, wk) and torch.equal(counts, wc)
+        assert stats == wstats
+        keys = keys[counts > 1]
+        t = dbg.neighbor_tables(keys, 31)
+        succ, _, _ = contigs._succ_from_tables(keys, t["left"], t["right"],
+                                               31)
+        for g, w in zip(sharded_doubling(succ, mesh),
+                        contigs._doubling(succ)):
+            assert torch.equal(g, w)
+        nbr = comp.adjacency(keys, 31)
+        active = torch.ones(keys.numel(), dtype=torch.bool,
+                            device=cuda_device)
+        assert torch.equal(sharded_connected_labels(nbr, active, mesh),
+                           comp.connected_labels(nbr, active))
+    finally:
+        D.shutdown()

@@ -85,6 +85,16 @@ sorted_keys, = psort.sort_arrays_blocked((keys[:1024].flip(0),), log_block=10)
 assert torch.equal(sorted_keys, keys[:1024])
 assert extract.unpack_2bit(torch.tensor([[228]], dtype=torch.uint8),
                            4).tolist() == [[0, 1, 2, 3]]
+# the multi-device modules, at world size 1 over gloo
+import os, tempfile
+from metafast_tpu_torch.parallel import components, contigs, count
+from metafast_tpu_torch.parallel import distributed as D
+with tempfile.TemporaryDirectory() as td:
+    mesh = D.initialize(1, 0, "file://" + os.path.join(td, "store"), "cpu")
+    sk, sc, _ = api.count_reads_files_sharded(files[:1], 21, mesh)
+    D.shutdown()
+want, _, _ = api.count_reads_files(files[:1], 21, "cpu")
+assert torch.equal(sk, want)
 # the CLI's default tool and one tool of every other ported tool module
 from pathlib import Path
 from metafast_tpu_torch import cli
@@ -162,7 +172,9 @@ def test_port_modules_import_no_jax_package():
     assert {"gui.py", "graph/pivot.py", "graph/colored.py", "stats/tests.py",
             "tools/stats_tools.py", "tools/composite2.py",
             "tools/extract_tools.py", "tools/misc_tools.py",
-            "tools/colored_tools.py"} <= scanned
+            "tools/colored_tools.py", "parallel/distributed.py",
+            "parallel/count.py", "parallel/contigs.py",
+            "parallel/components.py"} <= scanned
     bad = {str(f.relative_to(REPO)): tops & {"jax", "metafast_tpu"}
            for f in files if (tops := _imported_top_levels(f))
            & {"jax", "metafast_tpu"}}

@@ -201,14 +201,6 @@ def test_unknown_option_exits_1(built, tmp_path):
     assert _run(cli.main, args, tmp_path / "p", "--device", "cpu") == 1
 
 
-@pytest.mark.parametrize("opt", [["--shards", "2"], ["--shards", "1"]])
-def test_not_ported_options_exit_1(built, tmp_path, capsys, opt):
-    assert cli.main(["-k", str(K), "-i", built["files"][0], "-w",
-                     str(tmp_path), "--device", "cpu", *opt]) == 1
-    assert "not ported yet" in capsys.readouterr().err
-    assert not (tmp_path / "kmer-counter-many").exists()
-
-
 def _events(caplog) -> list[str]:
     """Step events of one run, durations and timestamps dropped."""
     keep = re.compile(r"^(\[[\w-]+\] (started|up to date, skipped|"
