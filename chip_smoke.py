@@ -13,7 +13,20 @@ Phases (any failure raises and exits non-zero):
      backbone, 12x coverage of 150 bp reads, seed 0; k=31, b=1, l=100,
      b1=1000, b2=10000), with per-stage seconds and peak device memory.
      Sample 0's raw table must equal the native single-thread counter's
-     and the level-1 component count the native BFS's.
+     and the level-1 component count (walk_connected_labels, the route
+     of a full-live level) the native BFS's.
+  labels. On phase 3's data: (a) the splitter-walk list ranking
+     (graph/rank.chain_rank) against pointer doubling (_doubling) on
+     sample 0's successor forest and on the level-1 recount graph's,
+     term / dist / reached equal, both timed in turns, with the walks
+     and segments; (b) walk_connected_labels, star_connected_labels and
+     hooking_connected_labels on the recount graph, equal labels, each
+     timed three times; (c) split_components on that graph: per level
+     the labeller its route took, its time and the level's active size,
+     beside the other labellers on the same level (equal labels), and
+     its components equal phase 3's; (d) walk against star labels on
+     the full-live tables of the union of samples 0..j-1, j = 1-4 (2.5-7
+     M keys), which place the walk route's size threshold.
   cli. The same eight files through the port's launcher, ``-t
      matrix-builder --device cuda --finish dist-matrix-calculator``
      in-process, with its wall and per-step seconds, peak device memory
@@ -27,7 +40,8 @@ Phases (any failure raises and exits non-zero):
      per sample against both, K1 launches counted from 0); (b)
      sharded_doubling on sample 0's successor forest equals _doubling;
      (c) the star contraction (sharded_connected_labels) on the level-1
-     recount graph equals the hooking labels, both timed; (d) the
+     recount graph equals the hooking labels and the single-device star
+     contraction, all three timed; (d) the
      --shards launcher: one rank more than the GPUs exits 1 with the JAX
      message, and 2 CPU ranks (gloo) write the files of the unsharded
      run on the card (2 samples of 200 kbp).
@@ -325,9 +339,11 @@ def phase_pipeline(dev, workdir: Path):
     # level-1 components of the contig graph against the native BFS
     seqs = [s[0] for c in res.contigs_per_sample for s in c]
     gkeys, gcounts = count_contig_kmers(seqs, K, dev, min_len=100)
-    labels = comp.connected_labels(
-        comp.adjacency(gkeys, K),
-        torch.ones(gkeys.numel(), dtype=torch.bool, device=dev))
+    # by the labeller split_components takes on this full-live level
+    if gkeys.numel() < comp._WALK_MIN:
+        raise RuntimeError(f"the recount graph ({gkeys.numel()} keys) is "
+                           "below the walk route's size")
+    labels = comp.walk_connected_labels(gkeys, K)
     n_level1 = int(torch.unique(labels).numel())
     n_native = native_components(lib, gkeys.cpu().numpy(),
                                  gcounts.cpu().numpy())
@@ -337,6 +353,165 @@ def phase_pipeline(dev, workdir: Path):
     log(f"check level-1 components == native bfs_components_baseline: "
         f"{n_level1} over {gkeys.numel()} keys")
     return launches, files, res, (codes, lengths), (nkeys, ncounts), stages
+
+
+LABEL_REPS = 3     # repeats of each timed labeller in phase labels
+
+
+def phase_labels(dev, res) -> None:
+    """Phase labels, on phase 3's data: (a) chain_rank against _doubling
+    on sample 0's successor forest and on the level-1 recount graph's;
+    (b) walk, star and hooking labels on the recount graph, each timed
+    LABEL_REPS times; (c) split_components on that graph, every level's
+    labeller timed beside the alternatives on the same level, and its
+    components against phase 3's; (d) walk against star on the unions
+    of 1-4 sample tables."""
+    import torch
+
+    from metafast_tpu_torch.graph import components as comp
+    from metafast_tpu_torch.graph import contigs, dbg, rank
+    from metafast_tpu_torch.pipeline.matrix import count_contig_kmers
+    from metafast_tpu_torch.state import components_to_numpy
+
+    t_phase = time.perf_counter()
+    seqs = [s[0] for c in res.contigs_per_sample for s in c]
+    gkeys, gcounts = count_contig_kmers(seqs, K, dev, min_len=100)
+    keys0 = torch.from_numpy(res.sample_tables[0][0]).to(dev)
+
+    # (a) list ranking: splitter walks against pointer doubling, in turns
+    for name, keys in (("sample0", keys0), ("recount", gkeys)):
+        t = dbg.neighbor_tables(keys, K)
+        succ, _, _ = contigs._succ_from_tables(keys, t["left"], t["right"], K)
+        del t
+        valid = torch.ones(succ.numel(), dtype=torch.bool, device=dev)
+        dbl_s, walk_s = [], []
+        for _ in range(LABEL_REPS):
+            (term, dist, reached), sec = timed(
+                dev, lambda: contigs._doubling(succ))
+            dbl_s.append(sec)
+            r, sec = timed(dev, lambda: rank.chain_rank(succ, valid))
+            walk_s.append(sec)
+        if not (torch.equal(r["reached"], reached)
+                and torch.equal(r["term"][reached], term[reached])
+                and torch.equal(r["dist"][reached], dist[reached])):
+            raise RuntimeError(f"labels (a): chain_rank != _doubling on "
+                               f"the {name} forest")
+        log(f"labels (a) chain_rank == _doubling on the {name} forest: "
+            f"{succ.numel()} nodes, {int(reached.sum())} reached, "
+            f"{r['n_walks']} walks, {r['segments']} segments of "
+            f"{rank._SEG_ROUNDS} rounds: "
+            f"chain_rank_s={[round(x, 4) for x in walk_s]} "
+            f"doubling_s={[round(x, 4) for x in dbl_s]}")
+        del succ, valid, term, dist, reached, r
+
+    # (b) the three labellers on the recount graph
+    tables, tables_s = timed(dev, lambda: dbg.neighbor_tables(gkeys, K))
+    nbr, adj_s = timed(dev, lambda: comp._adjacency(tables))
+    active = torch.ones(gkeys.numel(), dtype=torch.bool, device=dev)
+    times = {"walk": [], "star": [], "hooking": []}
+    for _ in range(LABEL_REPS):
+        walk, sec = timed(dev, lambda: comp.walk_connected_labels(
+            gkeys, K, tables))
+        times["walk"].append(sec)
+        star, sec = timed(dev, lambda: comp.star_connected_labels(
+            nbr, active))
+        times["star"].append(sec)
+        hook, sec = timed(dev, lambda: comp.hooking_connected_labels(
+            nbr, active))
+        times["hooking"].append(sec)
+        if not (torch.equal(walk, star) and torch.equal(walk, hook)):
+            raise RuntimeError("labels (b): walk, star and hooking labels "
+                               "differ")
+    log(f"labels (b) walk == star == hooking labels over {gkeys.numel()} "
+        f"keys, {int(torch.unique(walk).numel())} components: "
+        + " ".join(f"{n}_s={[round(x, 4) for x in v]}"
+                   for n, v in times.items())
+        + f" (from the tables: neighbor_tables_s={tables_s:.4f}, "
+        f"adjacency_s={adj_s:.4f})")
+    del tables, nbr, active, walk, star, hook
+
+    # (c) split_components: each level's labeller beside the others
+    orig = {n: getattr(comp, f"{n}_connected_labels")
+            for n in ("walk", "star", "hooking")}
+    levels = []
+
+    def on_level(route, args, alts):
+        out, sec = timed(dev, lambda: orig[route](*args))
+        row = {"labeller": route, "s": round(sec, 4)}
+        for alt, fn in alts.items():
+            got, sec = timed(dev, fn)
+            if not torch.equal(got, out):
+                raise RuntimeError(f"labels (c): level {len(levels) + 1} "
+                                   f"{alt} != {route}")
+            row[f"{alt}_s"] = round(sec, 4)
+        levels.append(row)
+        return out
+
+    def walk_level(keys, k, tables=None):
+        tables = dbg.neighbor_tables(keys, k) if tables is None else tables
+        nbr = comp._adjacency(tables)
+        active = torch.ones(keys.numel(), dtype=torch.bool, device=dev)
+        out = on_level("walk", (keys, k, tables), {
+            "star": lambda: orig["star"](nbr, active),
+            "hooking": lambda: orig["hooking"](nbr, active)})
+        levels[-1].update(M=keys.numel(), active=keys.numel())
+        return out
+
+    def edge_level(route, other):
+        def level(nbr, active):
+            out = on_level(route, (nbr, active), {
+                other: lambda: orig[other](nbr, active)})
+            levels[-1].update(M=nbr.shape[1], active=int(active.sum()))
+            return out
+        return level
+
+    try:
+        comp.walk_connected_labels = walk_level
+        comp.star_connected_labels = edge_level("star", "hooking")
+        comp.hooking_connected_labels = edge_level("hooking", "star")
+        found, split_s = timed(dev, lambda: comp.split_components(
+            gkeys, gcounts, K, 1000, 10000))
+    finally:
+        for n, fn in orig.items():
+            setattr(comp, f"{n}_connected_labels", fn)
+    found = components_to_numpy(found)
+    if len(found) != len(res.components) or not all(
+            np.array_equal(a.kmers, b.kmers) and a.weight == b.weight
+            and a.used_freq_threshold == b.used_freq_threshold
+            for a, b in zip(found, res.components)):
+        raise RuntimeError("labels (c): split_components != phase 3")
+    for i, row in enumerate(levels):
+        log(f"labels (c) level {i + 1}: " + json.dumps(row))
+    log(f"labels (c) split_components == phase 3 ({len(found)} "
+        f"components), {len(levels)} levels; split_s={split_s:.3f} with "
+        f"the alternatives timed inside")
+
+    # (d) where the walk route starts: walk against star on full-live
+    # tables between the levels of (c), the unions of the first j
+    # samples' tables
+    for j in (1, 2, 3, 4):
+        keys = torch.unique(torch.cat([torch.from_numpy(t[0]).to(dev)
+                                       for t in res.sample_tables[:j]]))
+        tables = dbg.neighbor_tables(keys, K)
+        nbr = comp._adjacency(tables)
+        active = torch.ones(keys.numel(), dtype=torch.bool, device=dev)
+        walk_s, star_s = [], []
+        for _ in range(LABEL_REPS):
+            walk, sec = timed(dev, lambda: comp.walk_connected_labels(
+                keys, K, tables))
+            walk_s.append(sec)
+            star, sec = timed(dev, lambda: comp.star_connected_labels(
+                nbr, active))
+            star_s.append(sec)
+            if not torch.equal(walk, star):
+                raise RuntimeError(f"labels (d): walk != star labels over "
+                                   f"{j} samples")
+        log(f"labels (d) walk == star labels over the union of {j} "
+            f"sample tables, {keys.numel()} keys (walk route from "
+            f"{comp._WALK_MIN}): walk_s={[round(x, 4) for x in walk_s]} "
+            f"star_s={[round(x, 4) for x in star_s]}")
+        del keys, tables, nbr, active, walk, star
+    log(f"labels phase_s={time.perf_counter() - t_phase:.3f}")
 
 
 CLI_STEPS = ["kmer-counter-many", "seq-builder-many", "component-cutter",
@@ -512,16 +687,21 @@ def phase_shards(dev, files, res, native, count_s: float,
     gkeys, _ = count_contig_kmers(seqs, K, dev, min_len=100)
     nbr = comp.adjacency(gkeys, K)
     active = torch.ones(gkeys.numel(), dtype=torch.bool, device=dev)
-    want, hooking = timed(dev, lambda: comp.connected_labels(nbr, active))
+    want, hooking = timed(dev, lambda: comp.hooking_connected_labels(
+        nbr, active))
+    single, star1 = timed(dev, lambda: comp.star_connected_labels(
+        nbr, active))
     got, star = timed(dev, lambda: sharded_connected_labels(nbr, active,
                                                             mesh))
-    if not torch.equal(got, want):
-        raise RuntimeError("shards (c): star contraction != hooking labels")
-    log(f"shards (c) sharded_connected_labels == connected_labels over "
-        f"{gkeys.numel()} keys, {int(torch.unique(got).numel())} "
-        f"components: star_s={star:.4f} hooking_s={hooking:.4f}")
+    if not (torch.equal(got, want) and torch.equal(got, single)):
+        raise RuntimeError("shards (c): sharded star contraction != "
+                           "hooking / single-device star labels")
+    log(f"shards (c) sharded_connected_labels == hooking_connected_labels "
+        f"== star_connected_labels over {gkeys.numel()} keys, "
+        f"{int(torch.unique(got).numel())} components: star_s={star:.4f} "
+        f"hooking_s={hooking:.4f} single_star_s={star1:.4f}")
     D.shutdown()
-    del nbr, active, got, want
+    del nbr, active, got, want, single
 
     # (d) the launcher
     small = workdir / "shards_small"
@@ -1021,6 +1201,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as td:
         launches, files, res, sample0, native, stages = phase_pipeline(
             dev, Path(td))
+        log_clocks("phase labels")
+        phase_labels(dev, res)
         phase_cli(dev, files, res, native, Path(td))
         log_clocks("phase shards")
         shard_launches = phase_shards(dev, files, res, native,

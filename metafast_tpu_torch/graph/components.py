@@ -1,23 +1,40 @@
-"""Connected components with size-window splitting — label propagation.
+"""Connected components with size-window splitting.
 
-Counterpart of metafast_tpu/graph/components.py (:38-180, :558-688).
-Reference semantics (src/algo/ComponentsBuilder.java): at threshold t the
-graph over surviving k-mers is partitioned into connected components;
-components smaller than b1 are dropped, those within [b1, b2] are emitted
-with weight = sum of counts and usedFreqThreshold = t, and oversized ones
-are re-processed at t+1 restricted to k-mers with count >= t+1.
+Counterpart of metafast_tpu/graph/components.py.  Reference semantics
+(src/algo/ComponentsBuilder.java): at threshold t the graph over
+surviving k-mers is partitioned into connected components; components
+smaller than b1 are dropped, those within [b1, b2] are emitted with
+weight = sum of counts and usedFreqThreshold = t, and oversized ones are
+re-processed at t+1 restricted to k-mers with count >= t+1.
 
-Components come from min-label propagation with hooking
-(Shiloach-Vishkin style) on the device: each round pushes labels along
-every edge with a scatter-min, hooks each vertex's new minimum onto its
-old root, and compresses twice, until a round changes nothing.
+Three labellers share one contract, the min index per active vertex and
+M on inactive rows:
+  - ``star_connected_labels``: large-star / small-star contraction
+    (Kiveris et al., "Connected Components in MapReduce and Beyond", SoCC
+    2014) over the deduplicated edge list.  The rewrite (``_star_emit``)
+    and its round loop (``_star_contract``) are written once, here; the
+    sharded twin (parallel/components.py) runs the same loop with an
+    exchange between ranks in place of the local deduplication.
+  - ``walk_connected_labels``: for a full-live table (every row active).
+    The chains of the successor forest are ranked once (graph/rank.py)
+    and each contracted to its terminal node; the star contraction then
+    runs on that quotient graph, about one vertex a chain.
+  - ``hooking_connected_labels``: min-label propagation with hooking
+    (Shiloach-Vishkin style), kept for A/B measurement and as the
+    equality oracle of the other two in tests.
 
-Emitted components are sorted by (usedFreqThreshold asc, weight desc,
-size desc, smallest member key), as ConnectedComponent.compareTo with a
-deterministic tie order.  With a default mesh the labels come from the
-sharded star contraction instead (parallel/components.py).  The JAX
-package's single-device walk/star-contraction label paths are not ported:
-its pipeline never reaches them.
+``split_components`` picks the labeller per level from what the H100
+measured (the constants below), never from the device type.  Emitted
+components are sorted by (usedFreqThreshold asc, weight desc, size desc,
+smallest member key), as ConnectedComponent.compareTo with a
+deterministic tie order.
+
+Where it departs from the JAX package: the star fixed point is tested
+exactly, by comparing the deduplicated edge list with the one held after
+the previous small-star round, where JAX compares a 32-bit checksum
+(:277-280, :303-328).  Edges are int64 pairs ``u << 32 | v``; the sort
+semijoin of JAX ``_edges_from_nbr`` (:203-235), which avoided a gather,
+and the width buckets, which bounded compile counts, are not ported.
 """
 
 from __future__ import annotations
@@ -27,7 +44,23 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from . import dbg
+from ..core import bitpack as bp
+from ..utils.hash32 import M32
+from . import contigs, dbg
+from .rank import chain_rank
+
+# Labeller routes, from chip_smoke.py phase "labels" on the S=8 stress
+# data (NVIDIA H100 80GB HBM3, 700 W; two runs).  On every level, star
+# beats hooking: the 12,990,882-key level-1 recount graph 0.183-0.196 s
+# against 0.963-0.982 s, the ~10^6-key later levels 0.019-0.046 s
+# against 0.060-0.095 s; so hooking is on no route.  On full-live tables
+# the walk's lockstep rounds cost much the same at every size, where the
+# star's edge rounds grow with it: walk against star 0.065-0.113 s /
+# 0.183-0.196 s at 12,990,882 keys, 0.040-0.056 / 0.063-0.064 s at
+# 3,997,670, 0.039-0.041 / 0.041-0.042 s at 2,498,224 (a tie), and
+# 0.078 / 0.036 s at 999,958.  A full-live level of at least this many
+# keys takes walk_connected_labels, the others star_connected_labels.
+_WALK_MIN = 3 << 20
 
 
 @dataclass
@@ -41,16 +74,182 @@ class Component:
         return self.kmers.numel()
 
 
+def _adjacency(tables: dict) -> torch.Tensor:
+    """[8, M] neighbor indices (-1 = absent) from dbg.neighbor_tables."""
+    L, R = tables["left"], tables["right"]
+    idx = torch.cat([L["idx"], R["idx"]])
+    present = torch.cat([L["present"], R["present"]])
+    return torch.where(present, idx, -1)
+
+
 def adjacency(keys: torch.Tensor, k: int) -> torch.Tensor:
     """[8, M] neighbor table indices (-1 = absent): left then right.
 
     Parity: KmerOperations.possibleNeighbours
     (src/algo/KmerOperations.java:9-27).
     """
-    t = dbg.neighbor_tables(keys, k)
-    idx = torch.cat([t["left"]["idx"], t["right"]["idx"]])
-    present = torch.cat([t["left"]["present"], t["right"]["present"]])
-    return torch.where(present, idx, -1)
+    return _adjacency(dbg.neighbor_tables(keys, k))
+
+
+# ---------------------------------------------------------------------------
+# Star contraction: one rewrite, run locally and sharded.
+
+
+def _active_edges(nbr: torch.Tensor, active: torch.Tensor):
+    """(u, v) of every active-active entry of the [8, M] adjacency,
+    self loops dropped."""
+    M = nbr.shape[1]
+    src = torch.arange(M, dtype=torch.int64, device=nbr.device).repeat(
+        nbr.shape[0])
+    dst = nbr.reshape(-1)
+    keep = (dst >= 0) & (src != dst)
+    keep &= active[src] & active[dst.clamp(0, max(M - 1, 0))]
+    return src[keep], dst[keep]
+
+
+def _star_emit(edges: torch.Tensor, large: bool):
+    """The star rewrite (metafast_tpu/parallel/components.py :234-258)
+    over sorted edges: per source run, m = min(u, first v); emit (v, m)
+    for the large (v > u) or small (v < u) side, plus (u, m) at run starts
+    for small-star.  Returns (new u, new v)."""
+    u, v = edges >> 32, edges & M32
+    start = torch.ones_like(u, dtype=torch.bool)
+    start[1:] = u[1:] != u[:-1]
+    run = torch.cumsum(start.to(torch.int64), 0) - 1
+    m = torch.minimum(u, v[start][run])
+    side = (v > u) if large else (v < u)
+    emit = side & (v != m)
+    nu, nv = v[emit], m[emit]
+    if large:
+        return nu, nv
+    emit = start & (m != u)
+    return torch.cat([nu, u[emit]]), torch.cat([nv, m[emit]])
+
+
+def _mirror_unique(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Both orientations of the edges (u, v) as sorted unique int64s."""
+    return torch.unique(torch.cat([u << 32 | v, v << 32 | u]))
+
+
+def _star_contract(edges: torch.Tensor, n_vertices: int,
+                   exchange=_mirror_unique, any_changed=bool):
+    """Large- and small-star rounds from ``edges`` (sorted, unique, both
+    orientations) to the fixed point, a forest of stars (child -> its
+    component's minimum, both orientations).
+
+    ``exchange(u, v)`` turns a round's rewritten edges into the next
+    round's edge list; ``any_changed(flag)`` says whether any holder's
+    list changed since the previous small-star round (the sharded twin
+    reduces the flag over its ranks).  Raises if the rounds do not
+    converge."""
+    prev = None
+    max_rounds = 4 * (int(np.ceil(np.log2(max(n_vertices, 2)))) + 2) ** 2 + 8
+    for rnd in range(max_rounds):
+        large = rnd % 2 == 0
+        edges = exchange(*_star_emit(edges, large))
+        if large:
+            continue
+        changed = prev is None or not torch.equal(edges, prev)
+        if not any_changed(changed):
+            return edges
+        prev = edges
+    raise RuntimeError("star contraction did not converge")
+
+
+def _star_labels(star: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """Labels from a star forest: each vertex's least neighbour or
+    itself; M on inactive rows."""
+    M = active.numel()
+    labels = torch.where(active, torch.arange(M, device=active.device), M)
+    labels.scatter_reduce_(0, star >> 32, star & M32, "amin")
+    return labels
+
+
+def star_connected_labels(nbr: torch.Tensor,
+                          active: torch.Tensor) -> torch.Tensor:
+    """Min-label per vertex over the active subgraph (inactive rows get
+    M) by star contraction on one device (JAX :334)."""
+    M = nbr.shape[1]
+    edges = _mirror_unique(*_active_edges(nbr, active))
+    return _star_labels(_star_contract(edges, M), active)
+
+
+# ---------------------------------------------------------------------------
+# Chain walks: the star contraction on the chain quotient.
+
+
+def walk_connected_labels(keys: torch.Tensor, k: int,
+                          tables: dict | None = None) -> torch.Tensor:
+    """Connected components of a full-live table via chain walks (JAX
+    :350-508).
+
+    The de Bruijn graph is almost all chains, and the successor function
+    already encodes them: the chains are ranked once (graph/rank.py) and
+    every node is represented by its chain's terminal node, or by its
+    walk where the chain is a cycle.  The quotient edges are the
+    orientation links fw(i) ~ rc(i), the links of every forked column to
+    its neighbours, and the ring links of cycle walks; the star
+    contraction labels that small graph.
+
+    Precondition: every non-sentinel row of ``keys`` is active.  Returns
+    the connected_labels contract: the min canonical index per key, M on
+    sentinel rows.  ``tables`` is dbg.neighbor_tables(keys, k) if the
+    caller has it.
+
+    Parity: replaces the BFS of ComponentsBuilder.bfs
+    (src/algo/ComponentsBuilder.java:220-269).
+    """
+    dev = keys.device
+    M = keys.numel()
+    n = 2 * M
+    if tables is None:
+        tables = dbg.neighbor_tables(keys, k)
+    L, R = tables["left"], tables["right"]
+    succ, _, _ = contigs._succ_from_tables(keys, L, R, k)
+    valid = ~bp.is_sentinel(keys)
+    valid2 = torch.cat([valid, valid])
+    r = chain_rank(succ, valid2)
+    walkid, term = r["walkid"], r["term"]
+    # representative: the chain's terminal node, or n + walk id on cycles
+    rep = torch.where(r["reached"], term,
+                      torch.where(walkid >= 0, n + walkid, -1))
+    rep_fw, rep_rc = rep[:M], rep[M:]
+
+    # fork links: each forked column to each present neighbour (both
+    # orientations of the neighbour share its orientation link)
+    cols = torch.nonzero((L["ext"] == dbg.FORK)
+                         | (R["ext"] == dbg.FORK)).flatten()
+    nb = _adjacency(tables)[:, cols]
+    fok = nb >= 0
+    fu = rep_fw[cols].expand_as(nb)[fok]
+    fv = rep_fw[nb[fok]]
+
+    # ring links of cycle walks, where the stop node is a cycle node too
+    res_stop, res_term = r["res_stop"], r["res_term"]
+    Q = n + res_stop.numel()
+    rep_stop = rep[res_stop.clamp(0, max(n - 1, 0))]
+    cyc = (res_stop >= 0) & ~res_term & (rep_stop >= n)
+    ring = n + torch.arange(res_stop.numel(), dtype=torch.int64, device=dev)
+
+    u = torch.cat([rep_fw, fu, ring[cyc]])
+    v = torch.cat([rep_rc, fv, rep_stop[cyc]])
+    ok = (u >= 0) & (v >= 0) & (u != v)
+    star = _star_contract(_mirror_unique(u[ok], v[ok]), Q)
+
+    # per quotient vertex: its star root, then the least key it stands for
+    qroot = _star_labels(star, torch.ones(Q, dtype=torch.bool, device=dev))
+    canon = torch.arange(n, dtype=torch.int64, device=dev) % max(M, 1)
+    sel = valid2 & (rep >= 0)
+    m_rep = torch.full((Q,), M, dtype=torch.int64, device=dev)
+    m_rep.scatter_reduce_(0, rep[sel], canon[sel], "amin")
+    comp_min = torch.full((Q,), M, dtype=torch.int64, device=dev)
+    comp_min.scatter_reduce_(0, qroot, m_rep, "amin")
+    lab = comp_min[qroot[rep_fw.clamp(0, max(Q - 1, 0))]]
+    return torch.where(valid & (rep_fw >= 0), lab, M)
+
+
+# ---------------------------------------------------------------------------
+# Hooking: the A/B and test oracle.
 
 
 def _scatter_min(base: torch.Tensor, index: torch.Tensor,
@@ -78,10 +277,10 @@ def _label_round(labels: torch.Tensor, nbr: torch.Tensor,
     return torch.where(active, labels, M)
 
 
-def connected_labels(nbr: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
-    """Min-label per vertex over the active subgraph; inactive rows get M.
-
-    Runs hooking rounds to the fixed point."""
+def hooking_connected_labels(nbr: torch.Tensor,
+                             active: torch.Tensor) -> torch.Tensor:
+    """Min-label per vertex over the active subgraph (inactive rows get
+    M) by hooking rounds to the fixed point (JAX :534)."""
     M = nbr.shape[1]
     ids = torch.arange(M, dtype=torch.int64, device=nbr.device)
     prev = torch.where(active, ids, M)
@@ -91,36 +290,39 @@ def connected_labels(nbr: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
     return cur
 
 
+def connected_labels(nbr: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """Min-label per vertex over the active subgraph; inactive rows get
+    M.  The labeller of a level that is not full-live."""
+    return star_connected_labels(nbr, active)
+
+
 def split_components(keys: torch.Tensor, counts: torch.Tensor, k: int,
                      b1: int, b2: int) -> list[Component]:
     """Size-window component splitting over a counted k-mer table.
 
     keys: [M] sorted canonical int64 keys; counts: [M] int32, on one
     device.  Labels are computed on the device; the per-level bookkeeping
-    runs on the host.  With a default mesh of more than one rank
-    (api.set_default_mesh) the labels come from the sharded star
-    contraction (parallel/components.py).
+    runs on the host.  A level is full-live at the first level and after
+    each compaction: large full-live levels take walk_connected_labels,
+    the others connected_labels.  With a default mesh of more than one
+    rank (api.set_default_mesh) every level takes the sharded star
+    contraction (parallel/components.py), as the JAX package (:573-579).
     """
     from .. import api
 
     device = keys.device
     mesh = api.get_default_mesh()
-    labels_fn = connected_labels
-    if mesh is not None and mesh.size > 1:
-        # the edge-cut star contraction over the mesh
-        # (parallel/components.py), as metafast_tpu/graph/components.py
-        # :572-579
+    sharded = mesh is not None and mesh.size > 1
+    if sharded:
         from ..parallel.components import sharded_connected_labels
-
-        def labels_fn(nbr, active):
-            return sharded_connected_labels(nbr, active, mesh)
     keys64 = keys.cpu().numpy()
     counts_all = counts.cpu().numpy().astype(np.int64)
     M = len(keys64)
     if M == 0:
         return []
     active = np.ones(M, dtype=bool)
-    nbr = None
+    tables = nbr = None
+    full_live = True
     thr = 1
     found = []      # (member keys, weight, threshold)
     while active.any():
@@ -133,11 +335,23 @@ def split_components(keys: torch.Tensor, counts: torch.Tensor, k: int,
             keys64, counts_all = keys64[sel], counts_all[sel]
             M = len(keys64)
             active = np.ones(M, dtype=bool)
-            nbr = None
-        if nbr is None:
-            nbr = adjacency(torch.from_numpy(keys64).to(device), k)
-        labels = labels_fn(
-            nbr, torch.from_numpy(active).to(device)).cpu().numpy()
+            tables = nbr = None
+            full_live = True
+        if tables is None:
+            keys_dev = torch.from_numpy(keys64).to(device)
+            tables = dbg.neighbor_tables(keys_dev, k)
+        if full_live and not sharded and M >= _WALK_MIN:
+            labels = walk_connected_labels(keys_dev, k, tables)
+        else:
+            if nbr is None:
+                nbr = _adjacency(tables)
+            active_dev = torch.from_numpy(active).to(device)
+            if sharded:
+                labels = sharded_connected_labels(nbr, active_dev, mesh)
+            else:
+                labels = connected_labels(nbr, active_dev)
+        labels = labels.cpu().numpy()
+        full_live = False
         act_idx = np.nonzero(active)[0]
         roots = labels[act_idx]
         order = np.argsort(roots, kind="stable")

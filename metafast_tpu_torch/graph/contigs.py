@@ -8,7 +8,10 @@ deduplicated by the canonical-key rule startKey < endKey.
 
 The walk rules define a successor function on oriented k-mers (node i is
 key i forward, M + i its reverse complement); chains are ranked by Wyllie
-pointer doubling on the device and assembled on the host.
+pointer doubling on the device and assembled on the host.  The JAX
+package ranks large tables on its TPU with splitter walks instead; the
+port has them (graph/rank.chain_rank) but measured them slower here, so
+they serve the component labels only (see chain_structure).
 
 Spec notes (as in the JAX package, parity-safe):
   - a self-successor (u -> u, e.g. poly-A) is treated as null; the
@@ -111,11 +114,21 @@ def chain_structure(keys: torch.Tensor, k: int):
     """Successor function + list ranking over oriented k-mer nodes.
 
     Returns a dict of [2M] tensors: term, dist, reached, is_start,
-    last_nuc (see metafast_tpu/graph/contigs.py chain_structure).  Under a
-    default mesh every rank holds the whole ``succ`` already, so each runs
-    ``_doubling`` itself: the row-sharded ranking
-    (parallel/contigs.sharded_doubling) would gather the same full result
-    back to every rank, and is kept off this route.
+    last_nuc (see metafast_tpu/graph/contigs.py chain_structure).
+
+    The ranking is ``_doubling`` on every table.  The splitter walks
+    (graph/rank.chain_rank), which the JAX package takes on its TPU from
+    2^21 nodes, lose on the card: 0.0322-0.0575 s against 0.0053-0.0060 s
+    on a sample's 4,996,448-node forest, and 0.0629-0.0802 s against
+    0.0355-0.0373 s on the 25,981,764-node forest of the level-1 recount
+    graph (chip_smoke.py phase "labels" (a), NVIDIA H100 80GB HBM3, 700 W,
+    two runs): their 384-448 lockstep rounds cost a few launches each,
+    where doubling takes at most 24 rounds of full-width gathers.
+
+    Under a default mesh every rank holds the whole ``succ`` already, so
+    each runs ``_doubling`` itself: the row-sharded ranking
+    (parallel/contigs.sharded_doubling) would gather the same full
+    result back to every rank, and is kept off this route.
     """
     t = dbg.neighbor_tables(keys, k)
     succ, is_start, last_nuc = _succ_from_tables(keys, t["left"],

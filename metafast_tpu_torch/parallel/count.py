@@ -26,26 +26,18 @@ import torch
 
 from ..core.extract import extract_canonical
 from ..ops.count import KmerCounter, count_keys, device_table, merge_counted
+from ..utils.hash32 import M32, mul32
 from . import distributed as D
 from .distributed import Mesh, make_mesh  # noqa: F401  (JAX parity)
-
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """(x * c) mod 2^32 for x in [0, 2^32), without int64 overflow."""
-    lo = x * (c & 0xFFFF)
-    hi = ((x * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _M32
 
 
 def hash_shard(keys: torch.Tensor, n_shards: int) -> torch.Tensor:
     """Shard id of each int64 key: metafast_tpu/parallel/count.py
     hash_shard (:53) on the key's uint32 halves, in int64 arithmetic."""
-    hi, lo = keys >> 32, keys & _M32
-    h = _mul32(hi, 0x85EBCA6B) ^ _mul32(lo, 0xC2B2AE35)
+    hi, lo = keys >> 32, keys & M32
+    h = mul32(hi, 0x85EBCA6B) ^ mul32(lo, 0xC2B2AE35)
     h ^= h >> 15
-    h = _mul32(h, 0x27D4EB2F)
+    h = mul32(h, 0x27D4EB2F)
     h ^= h >> 13
     return h % n_shards
 

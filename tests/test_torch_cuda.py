@@ -329,3 +329,52 @@ def test_world1_nccl_group_matches_single_device(tmp_path, cuda_device):
                            comp.connected_labels(nbr, active))
     finally:
         D.shutdown()
+
+
+def _graph_keys(tmp_path, device):
+    """A de Bruijn table of about 3 x 10^5 keys: two 200 kbp samples'
+    k-mers (k = 31) at count > 1, on the CPU."""
+    from metafast_tpu_torch import api
+
+    files = write_samples(tmp_path, 2, 200_000, 80_000, 12, seed=8)
+    keys, counts, _ = api.count_reads_files(files, 31, device)
+    return keys[counts > 1].cpu()
+
+
+def test_chain_rank_on_gpu_matches_cpu(tmp_path, cuda_device):
+    from metafast_tpu_torch.graph import contigs, dbg
+    from metafast_tpu_torch.graph.rank import chain_rank
+
+    keys = _graph_keys(tmp_path, cuda_device)
+    assert keys.numel() > 200_000
+    t = dbg.neighbor_tables(keys, 31)
+    succ, _, _ = contigs._succ_from_tables(keys, t["left"], t["right"], 31)
+    valid = torch.ones(succ.numel(), dtype=torch.bool)
+    cpu = chain_rank(succ, valid)
+    gpu = chain_rank(succ.to(cuda_device), valid.to(cuda_device))
+    for name, want in cpu.items():
+        got = gpu[name]
+        if isinstance(want, torch.Tensor):
+            assert torch.equal(got.cpu(), want), name
+        else:
+            assert got == want, name
+    term, dist, reached = contigs._doubling(succ.to(cuda_device))
+    assert torch.equal(gpu["reached"], reached)
+    assert torch.equal(gpu["term"][reached], term[reached])
+    assert torch.equal(gpu["dist"][reached], dist[reached])
+
+
+def test_labels_on_gpu_match_cpu(tmp_path, cuda_device):
+    from metafast_tpu_torch.graph import components as comp
+
+    keys = _graph_keys(tmp_path, cuda_device)
+    active = torch.ones(keys.numel(), dtype=torch.bool)
+    nbr = comp.adjacency(keys, 31)
+    star = comp.star_connected_labels(nbr, active)
+    walk = comp.walk_connected_labels(keys, 31)
+    assert torch.equal(star, walk)
+    assert torch.equal(star, comp.hooking_connected_labels(nbr, active))
+    gkeys = keys.to(cuda_device)
+    assert torch.equal(comp.star_connected_labels(
+        nbr.to(cuda_device), active.to(cuda_device)).cpu(), star)
+    assert torch.equal(comp.walk_connected_labels(gkeys, 31).cpu(), walk)

@@ -13,44 +13,12 @@ import pytest
 from metafast_tpu.graph import components as jcomp
 from metafast_tpu.graph import contigs as jcontigs
 from metafast_tpu.graph import dbg as jdbg
-from metafast_tpu.ops.count import KmerCounter as JCounter
 from metafast_tpu_torch.graph import components as tcomp
 from metafast_tpu_torch.graph import contigs as tcontigs
 from metafast_tpu_torch.graph import dbg as tdbg
 from metafast_tpu_torch.state import (components_to_numpy, join_pairs,
                                       table_from_jax)
-
-BASES = np.frombuffer(b"AGCT", dtype=np.uint8)   # code order A=0 G=1 C=2 T=3
-
-
-def _table(k, seed, genome_len=6000, cov=10, read_len=90, palindromes=0,
-           b=1):
-    """Counted table of reads drawn from a random genome (codes), with
-    read coverage varying along the genome so thresholds split it."""
-    rng = np.random.default_rng(seed)
-    genome = rng.integers(0, 4, genome_len).astype(np.uint8)
-    # a repeat longer than k: forks at both of its ends
-    genome[genome_len // 2:genome_len // 2 + 2 * k] = genome[50:50 + 2 * k]
-    half = k // 2
-    for p in range(palindromes):
-        # an even-length reverse-complement palindrome (k even: a
-        # palindromic k-mer sits at its centre)
-        left = rng.integers(0, 4, half + 3).astype(np.uint8)
-        pal = np.concatenate([left, (3 - left)[::-1]])
-        pos = 200 + p * (genome_len - 400) // max(palindromes, 1)
-        genome[pos:pos + len(pal)] = pal
-    weights = 1.0 + 3.0 * (np.sin(np.arange(genome_len - read_len) / 400) > 0)
-    n_reads = genome_len * cov // read_len
-    starts = rng.choice(genome_len - read_len, n_reads,
-                        p=weights / weights.sum())
-    reads = genome[starts[:, None] + np.arange(read_len)[None, :]]
-    lengths = np.full(n_reads, read_len, np.int32)
-    c = JCounter(k)
-    c.add_stream3(reads.ravel(), lengths)
-    keys, counts = c.finish()
-    keep = counts > b
-    return keys[keep], counts[keep]
-
+from torch_helpers import counted_table as _table
 
 def _pairs(keys):
     u = keys.astype(np.uint64)

@@ -66,6 +66,37 @@ def write_group_samples(directory, groups, genome_len, shared_len,
     return files, genomes
 
 
+def counted_table(k, seed, genome_len=6000, cov=10, read_len=90,
+                  palindromes=0, b=1):
+    """(keys, counts) at count > b of reads drawn from a random genome,
+    counted by the JAX package's counter, with read coverage varying
+    along the genome so thresholds split it, a repeat longer than k
+    (forks at both of its ends) and, for even k, ``palindromes``
+    reverse-complement palindromes (a palindromic k-mer at each centre)."""
+    from metafast_tpu.ops.count import KmerCounter
+
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, genome_len).astype(np.uint8)
+    genome[genome_len // 2:genome_len // 2 + 2 * k] = genome[50:50 + 2 * k]
+    half = k // 2
+    for p in range(palindromes):
+        left = rng.integers(0, 4, half + 3).astype(np.uint8)
+        pal = np.concatenate([left, (3 - left)[::-1]])
+        pos = 200 + p * (genome_len - 400) // max(palindromes, 1)
+        genome[pos:pos + len(pal)] = pal
+    weights = 1.0 + 3.0 * (np.sin(np.arange(genome_len - read_len) / 400) > 0)
+    n_reads = genome_len * cov // read_len
+    starts = rng.choice(genome_len - read_len, n_reads,
+                        p=weights / weights.sum())
+    reads = genome[starts[:, None] + np.arange(read_len)[None, :]]
+    lengths = np.full(n_reads, read_len, np.int32)
+    c = KmerCounter(k)
+    c.add_stream3(reads.ravel(), lengths)
+    keys, counts = c.finish()
+    keep = counts > b
+    return keys[keep], counts[keep]
+
+
 _TS = re.compile(rb"\d{4}-\d{2}-\d{2}_\d{2}-\d{2}-\d{2}")
 
 
