@@ -27,6 +27,7 @@ from .io import binfmt, native_reads
 from .io import reads as readsio
 from .ops.count import SATURATE, KmerCounter, card_spill, device_table
 from .ops.stream_extract import build_stream3, to_device
+from .utils import trace
 from .utils.device import resolve_device
 from .utils.native import native_library
 
@@ -66,9 +67,10 @@ def count_codes(counter: KmerCounter, codes: np.ndarray,
                 lengths: np.ndarray, progress=None) -> None:
     """Feed concatenated read codes into ``counter``, slab by slab."""
     for codes_s, lengths_s in _slabs(codes, lengths):
-        w0, w1, w2, vm = to_device(build_stream3(codes_s, lengths_s,
-                                                 counter.k),
-                                   counter.device)
+        with trace.span("count.layout"):
+            w0, w1, w2, vm = to_device(build_stream3(codes_s, lengths_s,
+                                                     counter.k),
+                                       counter.device)
         counter.add_stream3_device(w0, w1, w2, vm, lengths_s)
         if progress is not None:
             progress(lengths_s)
@@ -118,8 +120,9 @@ def parse_reads(path: str, min_len: int = 0):
     FASTQ file (optionally .gz / .bz2) by the native parser, reads shorter
     than min_len skipped; None for a format it does not take (BINQ)."""
     native_library()
-    parsed = native_reads.parse_file(path)
-    return None if parsed is None else _apply_min_len(parsed, min_len)
+    with trace.span("count.parse"):
+        parsed = native_reads.parse_file(path)
+        return None if parsed is None else _apply_min_len(parsed, min_len)
 
 
 def _apply_min_len(parsed, min_len: int):
@@ -210,7 +213,8 @@ def count_reads_files_sharded(files: list[str], k: int, mesh,
     turns so the ranks stay in lockstep.  ``spill`` (default: the card's
     ``card_spill``) bounds each rank's shard table.  Returns (keys int64
     ascending, counts int32) on the mesh's device, the same full table on
-    every rank, and the stats dict summed over ranks.
+    every rank, and the stats dict summed over ranks (``spills`` as in
+    count_reads_files).
     """
     from .parallel import distributed as D
     from .parallel.count import ShardedKmerCounter
@@ -243,6 +247,9 @@ def count_reads_files_sharded(files: list[str], k: int, mesh,
     stats = dict(reads=D.all_reduce(mesh, n_reads),
                  skipped=D.all_reduce(mesh, n_skipped),
                  kmers_seen=counter.total_kmers_seen, unique=keys.numel())
+    spills = D.all_reduce(mesh, counter.spill_events)
+    if spills:
+        stats["spills"] = spills
     return keys, counts, stats
 
 
@@ -263,7 +270,8 @@ def count_reads_files(files: list[str], k: int,
     (keys: path, reads, kmers).  Returns (keys int64 ascending, counts
     int32) on ``device`` and a stats dict.  The counter spills at the
     card's own threshold (``card_spill``); a table that spilled is merged
-    on the host and uploaded once.
+    on the host and uploaded once, and the stats then hold ``spills``,
+    the number of times it moved to host RAM.
 
     With a default mesh of more than one rank this is
     ``count_reads_files_sharded`` on the mesh's device.
@@ -305,6 +313,8 @@ def count_reads_files(files: list[str], k: int,
     keys, counts = device_table(counter)
     stats = dict(reads=n_reads, skipped=n_skipped,
                  kmers_seen=counter.total_kmers_seen, unique=len(keys))
+    if counter.spill_events:
+        stats["spills"] = counter.spill_events
     return keys, counts, stats
 
 
@@ -322,12 +332,14 @@ def load_kmers_bin(files: list[str], threshold: int,
     device = resolve_device(device)
     keys, counts = [], []
     for path in map(str, files):
-        k, c = binfmt.read_kmers_bin(path)
+        with trace.span("read.kmers_bin"):
+            k, c = binfmt.read_kmers_bin(path)
         keep = c > threshold
         keys.append(torch.from_numpy(k[keep]))
         counts.append(torch.from_numpy(c[keep]))
-    keys = torch.cat(keys).to(device)
-    counts = torch.cat(counts).to(device)
+    keys, counts = torch.cat(keys), torch.cat(counts)
+    trace.h2d(device, keys, counts)
+    keys, counts = keys.to(device), counts.to(device)
     keys, order = torch.sort(keys, stable=True)
     counts = counts[order].to(torch.int64)
     if len(files) > 1:

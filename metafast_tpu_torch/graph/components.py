@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..core import bitpack as bp
+from ..utils import trace
 from ..utils.hash32 import M32
 from . import contigs, dbg
 from .rank import chain_rank
@@ -315,8 +316,10 @@ def split_components(keys: torch.Tensor, counts: torch.Tensor, k: int,
     sharded = mesh is not None and mesh.size > 1
     if sharded:
         from ..parallel.components import sharded_connected_labels
-    keys64 = keys.cpu().numpy()
-    counts_all = counts.cpu().numpy().astype(np.int64)
+    with trace.span("components.to_host"):
+        trace.d2h(keys, counts)
+        keys64 = keys.cpu().numpy()
+        counts_all = counts.cpu().numpy().astype(np.int64)
     M = len(keys64)
     if M == 0:
         return []
@@ -326,54 +329,63 @@ def split_components(keys: torch.Tensor, counts: torch.Tensor, k: int,
     thr = 1
     found = []      # (member keys, weight, threshold)
     while active.any():
-        # below 1/4 occupancy, continue on the compacted sub-table: the
-        # label rounds cost O(table size), and membership is by key value,
-        # so compaction cannot change a component
-        n_act = int(active.sum())
-        if n_act * 4 <= M and M > 16:
-            sel = np.nonzero(active)[0]
-            keys64, counts_all = keys64[sel], counts_all[sel]
-            M = len(keys64)
-            active = np.ones(M, dtype=bool)
-            tables = nbr = None
-            full_live = True
-        if tables is None:
-            keys_dev = torch.from_numpy(keys64).to(device)
-            tables = dbg.neighbor_tables(keys_dev, k)
-        if full_live and not sharded and M >= _WALK_MIN:
-            labels = walk_connected_labels(keys_dev, k, tables)
-        else:
-            if nbr is None:
-                nbr = _adjacency(tables)
-            active_dev = torch.from_numpy(active).to(device)
-            if sharded:
-                labels = sharded_connected_labels(nbr, active_dev, mesh)
-            else:
-                labels = connected_labels(nbr, active_dev)
-        labels = labels.cpu().numpy()
-        full_live = False
-        act_idx = np.nonzero(active)[0]
-        roots = labels[act_idx]
-        order = np.argsort(roots, kind="stable")
-        act_sorted = act_idx[order]
-        roots_sorted = roots[order]
-        starts = np.nonzero(np.r_[True, roots_sorted[1:]
-                                  != roots_sorted[:-1]])[0]
-        ends = np.r_[starts[1:], len(roots_sorted)]
-        sizes = ends - starts
+        with trace.span("components.level"):
+            # below 1/4 occupancy, continue on the compacted sub-table:
+            # the label rounds cost O(table size), and membership is by
+            # key value, so compaction cannot change a component
+            n_act = int(active.sum())
+            if n_act * 4 <= M and M > 16:
+                with trace.span("components.bookkeeping"):
+                    sel = np.nonzero(active)[0]
+                    keys64, counts_all = keys64[sel], counts_all[sel]
+                    M = len(keys64)
+                    active = np.ones(M, dtype=bool)
+                tables = nbr = None
+                full_live = True
+            with trace.span("components.labels"):
+                if tables is None:
+                    trace.h2d(device, keys64)
+                    keys_dev = torch.from_numpy(keys64).to(device)
+                    tables = dbg.neighbor_tables(keys_dev, k)
+                if full_live and not sharded and M >= _WALK_MIN:
+                    labels = walk_connected_labels(keys_dev, k, tables)
+                else:
+                    if nbr is None:
+                        nbr = _adjacency(tables)
+                    trace.h2d(device, active)
+                    active_dev = torch.from_numpy(active).to(device)
+                    if sharded:
+                        labels = sharded_connected_labels(nbr, active_dev,
+                                                          mesh)
+                    else:
+                        labels = connected_labels(nbr, active_dev)
+                trace.d2h(labels)
+                labels = labels.cpu().numpy()
+            with trace.span("components.bookkeeping"):
+                full_live = False
+                act_idx = np.nonzero(active)[0]
+                roots = labels[act_idx]
+                order = np.argsort(roots, kind="stable")
+                act_sorted = act_idx[order]
+                roots_sorted = roots[order]
+                starts = np.nonzero(np.r_[True, roots_sorted[1:]
+                                          != roots_sorted[:-1]])[0]
+                ends = np.r_[starts[1:], len(roots_sorted)]
+                sizes = ends - starts
 
-        next_active = np.zeros(M, dtype=bool)
-        for s, e in zip(starts[sizes >= b1], ends[sizes >= b1]):
-            # act_idx ascends and the sort is stable: members ascend, so
-            # their keys are sorted
-            members = act_sorted[s:e]
-            if e - s <= b2:
-                found.append((keys64[members],
-                              int(counts_all[members].sum()), thr))
-            else:
-                next_active[members[counts_all[members] >= thr + 1]] = True
-        active = next_active
-        thr += 1
+                next_active = np.zeros(M, dtype=bool)
+                for s, e in zip(starts[sizes >= b1], ends[sizes >= b1]):
+                    # act_idx ascends and the sort is stable: members
+                    # ascend, so their keys are sorted
+                    members = act_sorted[s:e]
+                    if e - s <= b2:
+                        found.append((keys64[members],
+                                      int(counts_all[members].sum()), thr))
+                    else:
+                        keep = members[counts_all[members] >= thr + 1]
+                        next_active[keep] = True
+                active = next_active
+                thr += 1
         if thr > 32768:
             break
 
@@ -381,6 +393,8 @@ def split_components(keys: torch.Tensor, counts: torch.Tensor, k: int,
     if not found:
         return []
     sizes = [len(c[0]) for c in found]
-    kmers = torch.from_numpy(np.concatenate([c[0] for c in found])).to(device)
+    kmers = np.concatenate([c[0] for c in found])
+    trace.h2d(device, kmers)
+    kmers = torch.from_numpy(kmers).to(device)
     return [Component(kmers=km, weight=w, used_freq_threshold=t)
             for km, (_, w, t) in zip(torch.split(kmers, sizes), found)]

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..core import bitpack as bp
+from ..utils import trace
 from ..utils.kmers import kmer_string, rc64
 from . import dbg
 
@@ -149,12 +150,16 @@ def build_contigs(keys: torch.Tensor, counts: torch.Tensor, k: int,
     M = keys.numel()
     if M == 0:
         return []
-    st = chain_structure(keys, k)
-    st["last_nuc"] = st["last_nuc"].to(torch.uint8)
-    st = {name: v.cpu().numpy() for name, v in st.items()}
-    keys64 = keys.cpu().numpy()
-    counts = counts.cpu().numpy()
-    return _assemble(keys64, counts, k, len_threshold, M, st)
+    with trace.span("contigs.chain"):
+        st = chain_structure(keys, k)
+        st["last_nuc"] = st["last_nuc"].to(torch.uint8)
+    with trace.span("contigs.to_host"):
+        trace.d2h(*st.values(), keys, counts)
+        st = {name: v.cpu().numpy() for name, v in st.items()}
+        keys64 = keys.cpu().numpy()
+        counts = counts.cpu().numpy()
+    with trace.span("contigs.assemble"):
+        return _assemble(keys64, counts, k, len_threshold, M, st)
 
 
 def _assemble(keys64, counts, k, len_threshold, M, st):

@@ -22,6 +22,7 @@ import torch
 
 from ..core.bitpack import SENTINEL
 from ..core.extract import extract_canonical, extract_canonical_packed
+from ..utils import trace
 from ..utils.device import resolve_device
 
 SATURATE = 32767
@@ -103,6 +104,7 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     the copy is synchronous."""
     if t.device.type == "cpu":
         return t.numpy()
+    trace.d2h(t)
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t)
     return host.numpy()
@@ -203,7 +205,8 @@ class KmerCounter:
         self._pending.append(keys)
         self._pending_n += keys.numel()
         if self._pending_n >= self._chunk:
-            self._consolidate()
+            with trace.span("count.merge"):
+                self._consolidate()
 
     def _consolidate(self) -> None:
         if not self._pending:
@@ -254,8 +257,12 @@ class KmerCounter:
 
 def device_table(counter: KmerCounter):
     """The counter's merged table on its device: ``finish_device``, or,
-    once the table spilled, ``finish`` on the host uploaded once."""
-    if not counter.spill_events:
-        return counter.finish_device()
-    return tuple(torch.from_numpy(a).to(counter.device)
-                 for a in counter.finish())
+    once the table spilled (the last merge included), ``finish`` on the
+    host uploaded once."""
+    with trace.span("count.merge"):
+        try:
+            return counter.finish_device()
+        except SpilledError:
+            table = counter.finish()
+        trace.h2d(counter.device, *table)
+        return tuple(torch.from_numpy(a).to(counter.device) for a in table)

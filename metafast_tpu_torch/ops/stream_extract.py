@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..core.bitpack import SENTINEL
+from ..utils import trace
 from ..utils.native import native_library
 
 ROWS = 256          # column height
@@ -99,6 +100,7 @@ def to_device(arrays, device: torch.device) -> list[torch.Tensor]:
     for a in arrays:
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
         if device.type == "cuda":
+            trace.h2d(device, t)
             t = t.pin_memory().to(device, non_blocking=True)
         out.append(t)
     return out

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..io import binfmt
+from ..utils import trace
 from ..utils.device import resolve_device
 
 LOGGER = "metafast_torch"
@@ -224,8 +225,9 @@ class Tool:
 
         t0 = time.perf_counter()
         self.info("started")
-        self.run_impl()
-        self._run_steps()
+        with trace.step(self.NAME):
+            self.run_impl()
+            self._run_steps()
         self.info("done in %.3fs" % (time.perf_counter() - t0))
 
     def _guard_existing_state(self) -> None:
@@ -372,13 +374,16 @@ def check_k(k: int) -> None:
 
 def host(t: torch.Tensor) -> np.ndarray:
     """A device tensor on the host, for the file writers."""
+    trace.d2h(t)
     return t.cpu().numpy()
 
 
 def read_table(path, device: torch.device):
     """A .kmers.bin file as it stands (keys int64, counts int32), on
     ``device``."""
-    keys, counts = binfmt.read_kmers_bin(str(path))
+    with trace.span("read.kmers_bin"):
+        keys, counts = binfmt.read_kmers_bin(str(path))
+    trace.h2d(device, keys, counts)
     return torch.from_numpy(keys).to(device), torch.from_numpy(counts).to(device)
 
 

@@ -23,6 +23,7 @@ from ..io import binfmt, textfmt
 from ..io import reads as readsio
 from ..pipeline.matrix import (bray_curtis_matrix, count_contig_kmers,
                                feature_vectors)
+from ..utils import trace
 from ..utils.progress import CountingProgress
 from .framework import (ExecutionFailed, Param, Tool, check_k, host,
                         read_table, register, workdir_sub)
@@ -57,6 +58,10 @@ class KmerCounterTool(Tool):
                 files, k, self.device, progress=prog)
         self.info(f"{len(keys)} k-mers found over {stats['reads']} reads "
                   f"({stats['skipped']} skipped)")
+        if stats.get("spills"):
+            self.warn(f"the k-mer table reached the card's spill threshold "
+                      f"and moved to host RAM {stats['spills']} time(s); "
+                      f"it was merged on the host (slow)")
 
         out_dir = self.get("output-dir")
         st_dir = self.get("stats-dir")
@@ -67,10 +72,14 @@ class KmerCounterTool(Tool):
         st_file = st_dir / f"{name}.stat.txt"
 
         good = counts > b
-        binfmt.write_kmers_bin(str(out_file), host(keys[good]),
-                               host(counts[good]))
-        textfmt.write_stat_txt(str(st_file), host(counts))
-        n_good = int(good.sum())
+        with trace.span("count.to_host"):
+            good_keys, good_counts = host(keys[good]), host(counts[good])
+            all_counts = host(counts)
+        with trace.span("write.kmers_bin", out_file):
+            binfmt.write_kmers_bin(str(out_file), good_keys, good_counts)
+        with trace.span("write.stat", st_file):
+            textfmt.write_stat_txt(str(st_file), all_counts)
+        n_good = len(good_keys)
         self.info(f"{n_good} of them is good (not erroneous)")
         if len(keys) == 0:
             self.warn("No k-mers found in reads!")
@@ -140,11 +149,15 @@ class SeqBuilderTool(Tool):
         k = self.get("k")
         b = self.get("maximal-bad-frequency")
         files = [str(f) for f in self.get("k-mers")]
-        keys, counts = api.load_kmers_bin(files, b, self.device)
+        with trace.span("contigs.load"):
+            keys, counts = api.load_kmers_bin(files, b, self.device)
 
         # frequency histogram -> distribution file (SeqBuilderMain.java:84-101)
-        stat = textfmt.write_distribution(
-            str(self.workdir / "distribution"), host(counts))
+        dist_file = self.workdir / "distribution"
+        with trace.span("contigs.to_host"):
+            host_counts = host(counts)
+        with trace.span("write.distribution", dist_file):
+            stat = textfmt.write_distribution(str(dist_file), host_counts)
 
         bp_pct = self.get("bottom-cut-percent")
         if bp_pct is not None:
@@ -173,7 +186,8 @@ class SeqBuilderTool(Tool):
         base = Path(files[0]).name
         base = base[:-len(".kmers.bin")] if base.endswith(".kmers.bin") else base
         fp = out_dir / (base + ("+" if len(files) > 1 else "") + ".seq.fasta")
-        textfmt.write_contigs_fasta(str(fp), seqs)
+        with trace.span("write.fasta", fp):
+            textfmt.write_contigs_fasta(str(fp), seqs)
         self.info(f"Sequences printed to {fp}")
         self.set_output("output-file", str(fp))
 
@@ -238,9 +252,11 @@ class ComponentCutterTool(Tool):
         k = self.get("k")
         seqs: list[str] = []
         for f in self.get("sequences"):
-            seqs.extend(readsio.iter_reads(str(f)))
-        gkeys, gcounts = count_contig_kmers(seqs, k, self.device,
-                                            min_len=self.get("min-seq-len"))
+            with trace.span("read.fasta"):
+                seqs.extend(readsio.iter_reads(str(f)))
+        with trace.span("components.recount"):
+            gkeys, gcounts = count_contig_kmers(
+                seqs, k, self.device, min_len=self.get("min-seq-len"))
         if gkeys.numel() == 0:
             raise ExecutionFailed("No sequences were found in input files!")
         comps = comp_mod.split_components(
@@ -253,12 +269,15 @@ class ComponentCutterTool(Tool):
 
         out = self.get("components-file")
         out.parent.mkdir(parents=True, exist_ok=True)
-        binfmt.write_components_bin(
-            str(out), [(host(c.kmers), c.weight) for c in comps])
+        with trace.span("components.to_host"):
+            members = [(host(c.kmers), c.weight) for c in comps]
+        with trace.span("write.components", out):
+            binfmt.write_components_bin(str(out), members)
         stat_fp = self.workdir / (
             f"components-stat-{self.get('min-component-size')}-"
             f"{self.get('max-component-size')}.txt")
-        with open(stat_fp, "w") as fh:
+        with trace.span("write.components_stat", stat_fp), \
+                open(stat_fp, "w") as fh:
             fh.write("# component.no\tcomponent.size\tcomponent.weight"
                      "\tusedFreqThreshold\n")
             for i, c in enumerate(comps):
@@ -290,11 +309,15 @@ class FeaturesCalculatorTool(Tool):
     def run_impl(self):
         k = self.get("k")
         dev = self.device
-        comps = [comp_mod.Component(
-                     kmers=torch.sort(torch.from_numpy(kmers).to(dev)).values,
-                     weight=weight, used_freq_threshold=0)
-                 for kmers, weight in binfmt.read_components_bin(
-                     str(self.get("components")))]
+        with trace.span("read.components"):
+            loaded = binfmt.read_components_bin(str(self.get("components")))
+        with trace.span("features.load"):
+            trace.h2d(dev, *(kmers for kmers, _ in loaded))
+            comps = [comp_mod.Component(
+                         kmers=torch.sort(torch.from_numpy(kmers)
+                                          .to(dev)).values,
+                         weight=weight, used_freq_threshold=0)
+                     for kmers, weight in loaded]
         if not comps:
             raise ExecutionFailed("No components were found in input file!")
         self.info(f"{len(comps)} components loaded")
@@ -323,11 +346,15 @@ class FeaturesCalculatorTool(Tool):
                 yield name, keys, counts[order]
 
         for name, keys, counts in tables():
-            vec, brd = feature_vectors(comps, keys, counts, thr)
+            with trace.span("features.vectors"):
+                vec, brd = feature_vectors(comps, keys, counts, thr)
             vf = out_dir / f"{name}.vec"
             bf = out_dir / f"{name}.breadth"
-            textfmt.write_vector(str(vf), host(vec))
-            textfmt.write_breadth(str(bf), host(brd))
+            with trace.span("features.to_host"):
+                vec, brd = host(vec), host(brd)
+            with trace.span("write.vec", vf, bf):
+                textfmt.write_vector(str(vf), vec)
+                textfmt.write_breadth(str(bf), brd)
             self.info(f"Features for {name} printed to {vf}")
             features_files.append(str(vf))
 
@@ -356,18 +383,24 @@ class DistMatrixCalculatorTool(Tool):
         for f in files:
             n = Path(f).name
             names.append(n[:-len(".vec")] if n.endswith(".vec") else n)
-            vecs.append(textfmt.read_vector(f))
+            with trace.span("read.vec"):
+                vecs.append(textfmt.read_vector(f))
         lens = {len(v) for v in vecs}
         if len(lens) != 1:
             raise ExecutionFailed(f"feature vectors disagree on length: {lens}")
-        mat = bray_curtis_matrix(torch.from_numpy(np.stack(vecs))
-                                 .to(self.device))
+        vecs = np.stack(vecs)
+        trace.h2d(self.device, vecs)
+        with trace.span("matrix.bray_curtis"):
+            mat = bray_curtis_matrix(torch.from_numpy(vecs).to(self.device))
+        mat = host(mat)
 
         out = self.get("matrix-file")
         out = Path(str(out).replace("$DT", time.strftime("%Y-%m-%d_%H-%M-%S")))
         out.parent.mkdir(parents=True, exist_ok=True)
-        textfmt.write_dist_matrix(
-            str(out), host(mat), None if self.get("without-header") else names)
+        with trace.span("write.matrix", out):
+            textfmt.write_dist_matrix(
+                str(out), mat,
+                None if self.get("without-header") else names)
         self.info(f"Distance matrix printed to {out}")
         self.set_output("matrix-file", str(out))
         self.set_output("names", names)
