@@ -17,20 +17,35 @@
 
 from __future__ import annotations
 
-from collections import Counter
-
 import numpy as np
+import torch
+
+from ..utils import trace
 
 
-def write_stat_txt(path: str, counts: np.ndarray,
-                   header: str = "# k-mer frequency\tnumber of such k-mers") -> None:
-    """Frequency histogram of `counts` (all entries, sorted by frequency)."""
-    freq = Counter(np.asarray(counts).tolist())
+def frequency_histogram(counts) -> tuple[list, list]:
+    """(values, numbers) of a table of counts, a tensor or an array: each
+    distinct value, ascending, and how many entries hold it.  The table is
+    histogrammed where it lies and only the two short results are copied
+    to the host."""
+    values, numbers = torch.unique(torch.as_tensor(counts), sorted=True,
+                                   return_counts=True)
+    trace.d2h(values, numbers)
+    return values.tolist(), numbers.tolist()
+
+
+def write_histogram(path: str, values, numbers) -> None:
+    """A ``*.stat.txt`` file from ``frequency_histogram``'s pairs."""
     with open(path, "w") as fh:
-        fh.write(header + "\n")
-        for f in sorted(freq):
-            fh.write(f"{f}\t{freq[f]}\n")
+        fh.write("# k-mer frequency\tnumber of such k-mers\n")
+        fh.writelines(f"{f}\t{n}\n" for f, n in zip(values, numbers))
         fh.write("\n")
+
+
+def write_stat_txt(path: str, counts) -> None:
+    """Frequency histogram of `counts` (a tensor or an array, all entries,
+    sorted by frequency)."""
+    write_histogram(path, *frequency_histogram(counts))
 
 
 def write_distribution(path: str, counts: np.ndarray, stat_len: int = 1024) -> np.ndarray:

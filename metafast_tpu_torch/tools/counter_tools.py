@@ -65,8 +65,7 @@ class KmersSamplesCounterTool(Tool):
         good = counts > 0
         binfmt.write_kmers_bin(str(out_file), host(keys[good]),
                                host(counts[good].to(torch.int16)))
-        textfmt.write_stat_txt(str(st_dir / "n_samples.stat.txt"),
-                               host(counts))
+        textfmt.write_stat_txt(str(st_dir / "n_samples.stat.txt"), counts)
         self.info(f"{len(keys)} k-mers found, {int(good.sum())} good")
         self.set_output("resulting-kmers-file", str(out_file))
 

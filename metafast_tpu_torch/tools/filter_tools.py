@@ -74,7 +74,7 @@ class UniqueKmersTool(Tool):
         out_file = out_dir / "filtered.kmers.bin"
         binfmt.write_kmers_bin(str(out_file), host(keys[good]),
                                host(counts[good]))
-        textfmt.write_stat_txt(str(st_dir / "filtered.stat.txt"), host(counts))
+        textfmt.write_stat_txt(str(st_dir / "filtered.stat.txt"), counts)
         self.info(f"{len(keys)} k-mers found, {int(good.sum())} of them is "
                   f"good (present in one dataset and missing in other)")
         self.set_output("resulting-kmers-file", str(out_file))

@@ -74,11 +74,11 @@ class KmerCounterTool(Tool):
         good = counts > b
         with trace.span("count.to_host"):
             good_keys, good_counts = host(keys[good]), host(counts[good])
-            all_counts = host(counts)
+            stat = textfmt.frequency_histogram(counts)
         with trace.span("write.kmers_bin", out_file):
             binfmt.write_kmers_bin(str(out_file), good_keys, good_counts)
         with trace.span("write.stat", st_file):
-            textfmt.write_stat_txt(str(st_file), all_counts)
+            textfmt.write_histogram(str(st_file), *stat)
         n_good = len(good_keys)
         self.info(f"{n_good} of them is good (not erroneous)")
         if len(keys) == 0:

@@ -8,6 +8,8 @@ on a machine that has none:
 (--noconftest: tests/conftest.py configures JAX.)
 """
 
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +17,7 @@ import torch
 from metafast_tpu_torch import cli
 from metafast_tpu_torch.graph import pivot
 from metafast_tpu_torch.core.bitpack import SENTINEL
+from metafast_tpu_torch.io import textfmt
 from metafast_tpu_torch.io.native_reads import pack_2bit
 from metafast_tpu_torch.ops import psort
 from metafast_tpu_torch.ops import stream_extract as TSE
@@ -23,7 +26,8 @@ from metafast_tpu_torch.ops.count import (MERGE_CHUNK_BYTES,
                                           card_spill)
 from metafast_tpu_torch.pipeline import matrix_pipeline
 from metafast_tpu_torch.utils.kmers import sequence_kmers
-from torch_helpers import cuda_device, workdir_tree  # noqa: F401
+from torch_helpers import check_kmer_counter_copies, cuda_device  # noqa: F401
+from torch_helpers import workdir_tree
 from torch_helpers import write_group_samples, write_samples
 
 pytestmark = pytest.mark.cuda
@@ -378,3 +382,22 @@ def test_labels_on_gpu_match_cpu(tmp_path, cuda_device):
     assert torch.equal(comp.star_connected_labels(
         nbr.to(cuda_device), active.to(cuda_device)).cpu(), star)
     assert torch.equal(comp.walk_connected_labels(gkeys, 31).cpu(), walk)
+
+
+@pytest.mark.parametrize("n", [0, 200_000])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_stat_txt_from_a_cuda_tensor(n, dtype, tmp_path, cuda_device):
+    """stat.txt of a table on the card: the bytes of a plain Counter's
+    histogram of the same table."""
+    counts = np.minimum(np.random.default_rng(14).zipf(1.3, n), 32767)
+    counts[:3] = 32767
+    textfmt.write_stat_txt(str(tmp_path / "stat.txt"),
+                           torch.from_numpy(counts).to(cuda_device, dtype))
+    freq = Counter(counts.tolist())
+    want = ("# k-mer frequency\tnumber of such k-mers\n"
+            + "".join(f"{f}\t{freq[f]}\n" for f in sorted(freq)) + "\n")
+    assert (tmp_path / "stat.txt").read_text() == want
+
+
+def test_traced_kmer_counter_copies_back_the_histogram(tmp_path, cuda_device):
+    check_kmer_counter_copies(tmp_path, cuda_device)

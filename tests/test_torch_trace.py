@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
-from torch_helpers import write_samples
+from torch_helpers import check_kmer_counter_copies, write_samples
 
 from metafast_tpu_torch import api as tapi
 from metafast_tpu_torch import cli
@@ -190,3 +190,12 @@ def test_spilled_count_reads_files_stats(tmp_path, monkeypatch):
     skeys, scounts, sstats = tapi.count_reads_files(files, 31, "cpu")
     assert sstats.pop("spills") == 1 and sstats == stats
     assert torch.equal(keys, skeys) and torch.equal(counts, scounts)
+
+
+def test_kmer_counter_copies_back_the_histogram_not_the_table(
+        tmp_path, monkeypatch):
+    """kmer-counter's copies back, its tensors counted as if they lay on
+    the card."""
+    monkeypatch.setattr(trace, "d2h", lambda *ts: trace.count(
+        "d2h_bytes", sum(t.nbytes for t in ts)))
+    check_kmer_counter_copies(tmp_path, torch.device("cpu"))

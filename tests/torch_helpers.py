@@ -8,6 +8,35 @@ import pytest
 import torch
 
 
+def check_kmer_counter_copies(directory, device):
+    """Run kmer-counter on ``device`` under the profiler and check its
+    counters: it copies back the good keys and counts and stat.txt's
+    bins, not the whole counts table."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from metafast_tpu_torch import api, cli
+    from metafast_tpu_torch.io import binfmt
+    from metafast_tpu_torch.utils import trace
+
+    files = write_samples(directory, 1, 20_000, 0, 10, seed=5)
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert cli.main(["-t", "kmer-counter", "-k", "31", "-i", *files,
+                         "--device", str(device),
+                         "-w", str(directory / "wd")]) == 0
+    got = trace.counters()
+    trace.reset()
+    _, counts, _ = api.count_reads_files(files, 31, device)
+    (kmers,) = (directory / "wd").rglob("*.kmers.bin")
+    (stat,) = (directory / "wd").rglob("*.stat.txt")
+    good_keys, _ = binfmt.read_kmers_bin(str(kmers))
+    n_bins = len(stat.read_text().splitlines()) - 2
+    assert 0 < len(good_keys) < counts.numel() and n_bins > 1
+    assert got["d2h_bytes"] == (
+        len(good_keys) * (8 + counts.element_size())
+        + n_bins * (counts.element_size() + 8))
+
+
 @pytest.fixture
 def cuda_device():
     """The GPU, for tests marked ``cuda``; skips where there is none."""
