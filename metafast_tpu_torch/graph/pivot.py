@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..core import bitpack as bp
+from ..utils import trace
 from ..utils.native import native_library
 from .lookup import find
 
@@ -139,8 +140,10 @@ class _Graph:
         self.keys = keys
         self.counts = counts
         self.k = k
-        right, left = (t.cpu().numpy() for t in neighbor_index(
-            torch.from_numpy(keys).to(device), k))
+        trace.h2d(device, keys)
+        tables = neighbor_index(torch.from_numpy(keys).to(device), k)
+        trace.d2h(*tables)
+        right, left = (t.cpu().numpy() for t in tables)
         if len(keys) <= _LIST_MAX:
             # list rows: ~4x faster per visited node; fine up to ~2 GB
             self.right = right.tolist()
@@ -218,18 +221,20 @@ def split_around_pivot(keys: np.ndarray, counts: np.ndarray, k: int,
         out = _split_around_pivot_native(keys, counts, k, pivot_keys)
         if out is not None:
             return out
-    g = _Graph(keys, counts, k, device)
+    with trace.span("pivot.index"):
+        g = _Graph(keys, counts, k, device)
 
-    piv_np = _pivot_flags(keys, pivot_keys)
-    piv = bytearray(piv_np.tobytes())
-    pivot_done = bytearray(len(keys))
+    with trace.span("pivot.traverse"):
+        piv_np = _pivot_flags(keys, pivot_keys)
+        piv = bytearray(piv_np.tobytes())
+        pivot_done = bytearray(len(keys))
 
-    out = []
-    for start in np.nonzero(piv_np)[0]:
-        if pivot_done[start] or g.visited[start]:
-            continue
-        out.append(_bfs(g, int(start), piv, pivot_done, depth))
-    return _order(out)
+        out = []
+        for start in np.nonzero(piv_np)[0]:
+            if pivot_done[start] or g.visited[start]:
+                continue
+            out.append(_bfs(g, int(start), piv, pivot_done, depth))
+        return _order(out)
 
 
 def native_neighbor_index(lib, keys: np.ndarray, k: int):
@@ -260,7 +265,8 @@ def _split_around_pivot_native(keys, counts, k, pivot_keys
     n = len(keys)
     if n == 0:
         return []
-    left, right = native_neighbor_index(lib, keys, k)
+    with trace.span("pivot.index"):
+        left, right = native_neighbor_index(lib, keys, k)
 
     piv_np = _pivot_flags(keys, pivot_keys).astype(np.uint8)
     starts = np.nonzero(piv_np)[0].astype(np.int64)
@@ -277,24 +283,25 @@ def _split_around_pivot_native(keys, counts, k, pivot_keys
     p32 = ctypes.POINTER(ctypes.c_int32)
     p64 = ctypes.POINTER(ctypes.c_int64)
     p8 = ctypes.POINTER(ctypes.c_uint8)
-    n_comp = lib.pivot_bfs_depth1(
-        left.ctypes.data_as(p32), right.ctypes.data_as(p32),
-        counts64.ctypes.data_as(p64), piv_np.ctypes.data_as(p8),
-        n, starts.ctypes.data_as(p64), len(starts),
-        members.ctypes.data_as(p32), members_cap,
-        comp_off.ctypes.data_as(p64), comp_w.ctypes.data_as(p64),
-        comp_p.ctypes.data_as(p64), max_comps)
-    if n_comp < 0:
-        _log.warning("pivot_bfs_depth1: members buffer overflow at %d keys; "
-                     "taking the Python traversal", n)
-        return None
-    out = []
-    for c in range(n_comp):
-        m = members[comp_off[c]:comp_off[c + 1]]
-        out.append(PivotComponent(
-            kmers=np.sort(keys[np.unique(m.astype(np.int64))]),
-            weight=int(comp_w[c]), n_pivot=int(comp_p[c])))
-    return _order(out)
+    with trace.span("pivot.traverse"):
+        n_comp = lib.pivot_bfs_depth1(
+            left.ctypes.data_as(p32), right.ctypes.data_as(p32),
+            counts64.ctypes.data_as(p64), piv_np.ctypes.data_as(p8),
+            n, starts.ctypes.data_as(p64), len(starts),
+            members.ctypes.data_as(p32), members_cap,
+            comp_off.ctypes.data_as(p64), comp_w.ctypes.data_as(p64),
+            comp_p.ctypes.data_as(p64), max_comps)
+        if n_comp < 0:
+            _log.warning("pivot_bfs_depth1: members buffer overflow at %d "
+                         "keys; taking the Python traversal", n)
+            return None
+        out = []
+        for c in range(n_comp):
+            m = members[comp_off[c]:comp_off[c + 1]]
+            out.append(PivotComponent(
+                kmers=np.sort(keys[np.unique(m.astype(np.int64))]),
+                weight=int(comp_w[c]), n_pivot=int(comp_p[c])))
+        return _order(out)
 
 
 def _bfs(g: _Graph, start: int, piv: np.ndarray, pivot_done: np.ndarray,

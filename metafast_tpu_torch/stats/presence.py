@@ -21,8 +21,10 @@ matches that density and streaming shape:
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..io import binfmt
+from ..utils import trace
 
 # popcount over uint8 (numpy has no vectorized popcount); one 256-entry
 # LUT indexed by byte view
@@ -43,36 +45,59 @@ class LazyTables:
     Parity: the reference's stats tools stream each sample file once into
     the shared bitset map (src/io/IOUtils.java:507-539) instead of holding
     all samples resident.
+
+    With a ``device``, each table is a pair of tensors there, sorted there
+    (the ``*_device`` builders below take such tables).
     """
 
-    def __init__(self, files, threshold: int = 0):
+    def __init__(self, files, threshold: int = 0, device=None):
         self.files = [str(f) for f in files]
         self.threshold = threshold
+        self.device = device
 
     def __len__(self) -> int:
         return len(self.files)
 
     def __add__(self, other: "LazyTables") -> "LazyTables":
-        assert self.threshold == other.threshold
-        return LazyTables(self.files + other.files, self.threshold)
+        assert (self.threshold, self.device) == (other.threshold,
+                                                 other.device)
+        return LazyTables(self.files + other.files, self.threshold,
+                          self.device)
 
     def __getitem__(self, i):
         if isinstance(i, slice):
-            sub = LazyTables(self.files[i], self.threshold)
-            return sub
-        return _load_one(self.files[i], self.threshold)
+            return LazyTables(self.files[i], self.threshold, self.device)
+        return self._load(self.files[i])
 
     def __iter__(self):
         for f in self.files:
-            yield _load_one(f, self.threshold)
+            yield self._load(f)
+
+    def _load(self, path: str):
+        if self.device is None:
+            return _load_one(path, self.threshold)
+        return _load_one_device(path, self.threshold, self.device)
 
 
 def _load_one(path: str, threshold: int):
-    keys, counts = binfmt.read_kmers_bin(path)
+    with trace.span("read.kmers_bin"):
+        keys, counts = binfmt.read_kmers_bin(path)
     keep = counts > threshold
     keys, counts = keys[keep], counts[keep]
     order = np.argsort(keys)
     return keys[order], counts[order].astype(np.int64)
+
+
+def _load_one_device(path: str, threshold: int, device):
+    """``_load_one`` with the table uploaded and sorted on ``device``:
+    (int64 keys ascending, int64 counts) tensors."""
+    with trace.span("read.kmers_bin"):
+        keys, counts = binfmt.read_kmers_bin(path)
+    keep = counts > threshold
+    keys, counts = keys[keep], counts[keep]
+    trace.h2d(device, keys, counts)
+    keys, order = torch.sort(torch.from_numpy(keys).to(device))
+    return keys, torch.from_numpy(counts).to(device)[order].long()
 
 
 def load_sample_tables(files, threshold: int = 0):
@@ -237,4 +262,54 @@ def count_matrix(tables, keys: np.ndarray,
         if len(sk):
             hit = sk[idx_c] == keys
             cnt[hit, j] = sc[idx_c[hit]]
+    return cnt
+
+
+# ---------------------------------------------------------------------------
+# Device twins of the builders above, over a LazyTables with a device: the
+# same passes and the same results, as tensors on the tables' device.
+
+def union_keys_device(tables) -> torch.Tensor:
+    """``union_keys`` on the device: the sorted union, merged in batches
+    of ``_UNION_BATCH`` sample keys."""
+    acc = torch.empty(0, dtype=torch.int64, device=tables.device)
+    batch: list[torch.Tensor] = []
+    batch_n = 0
+    for sk, _sc in tables:
+        batch.append(sk)
+        batch_n += len(sk)
+        if batch_n >= _UNION_BATCH:
+            acc = torch.unique(torch.cat([acc] + batch))
+            batch, batch_n = [], 0
+    if batch:
+        acc = torch.unique(torch.cat([acc] + batch))
+    return acc
+
+
+def group_presence_counts_device(tables, keys: torch.Tensor,
+                                 group_sizes: list[int]
+                                 ) -> list[torch.Tensor]:
+    """``group_presence_counts`` on the device: per group, the number of
+    its samples holding each key of the sorted ``keys``."""
+    bounds = np.cumsum([0] + list(group_sizes))
+    out = [torch.zeros(len(keys), dtype=torch.int64, device=keys.device)
+           for _ in group_sizes]
+    gi = 0
+    for j, (sk, _sc) in enumerate(tables):
+        while j >= bounds[gi + 1]:
+            gi += 1
+        # a sample's keys are distinct, so no row is hit twice
+        out[gi][torch.searchsorted(keys, sk)] += 1
+    return out
+
+
+def count_matrix_device(tables, keys: torch.Tensor) -> torch.Tensor:
+    """``count_matrix`` on the device: int64 [N, S], each key's count in
+    each sample, 0 where absent."""
+    cnt = torch.zeros((len(keys), len(tables)), dtype=torch.int64,
+                      device=keys.device)
+    for j, (sk, sc) in enumerate(tables):
+        if len(sk):
+            idx = torch.searchsorted(sk, keys).clamp_(max=len(sk) - 1)
+            cnt[:, j] = torch.where(sk[idx] == keys, sc[idx], 0)
     return cnt

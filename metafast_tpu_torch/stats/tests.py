@@ -11,7 +11,9 @@
 
 The port's copy of metafast_tpu/stats/tests.py, host NumPy as there: the
 float32 rounding of the chi-squared statistic is the reference's
-semantics, so it is not re-derived in torch.
+semantics, so it is not re-derived in torch.  The one device function,
+``mannwhitney_umin2_rows_device``, ranks rows in exact integers; the
+p-values stay here.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 
 def chi2_invcdf_df1(p: float) -> float:
@@ -199,12 +202,39 @@ def mannwhitney_p_rows(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     sum_ranks_a = ranks[:, :n1].sum(axis=1)
     u1 = sum_ranks_a - n1 * (n1 + 1) / 2.0
     u2 = n1 * n2 - u1
-    umin = np.minimum(u1, u2)
+    return mannwhitney_p_umin(np.minimum(u1, u2), n1, n2)
+
+
+def mannwhitney_p_umin(umin, n1: int, n2: int) -> np.ndarray:
+    """Two-sided Mann-Whitney p of each U_min, for groups of n1 and n2."""
     mu = n1 * n2 / 2.0
     sigma = math.sqrt(n1 * n2 * (n1 + n2 + 1) / 12.0)
-    zstat = (umin - mu) / sigma
+    zstat = (np.asarray(umin, dtype=np.float64) - mu) / sigma
     # commons-math: 2 * Phi(z)
     return 2.0 * _norm_cdf(zstat)
+
+
+# comparisons held at once on the device: [rows, n1 + n2, n1] a chunk
+_MW_CELLS = 1 << 27
+
+
+def mannwhitney_umin2_rows_device(a: torch.Tensor,
+                                  b: torch.Tensor) -> torch.Tensor:
+    """Twice U_min per row of (a [N, n1], b [N, n2]), an exact int64, on
+    their device; ``mannwhitney_p_umin(u / 2, ...)`` is then
+    ``mannwhitney_p_rows``.  Twice a value's average rank among ties is
+    2 * (#smaller) + #equal + 1, so no rank is rounded."""
+    n1, n2 = a.shape[1], b.shape[1]
+    rows = max(1, _MW_CELLS // ((n1 + n2) * max(n1, 1)))
+    out = torch.empty(len(a), dtype=torch.int64, device=a.device)
+    for lo in range(0, len(a), rows):
+        z = torch.cat([a[lo:lo + rows], b[lo:lo + rows]], dim=1)
+        za = z[:, None, :n1]
+        less = (z[:, :, None] < za).sum(dim=1)
+        equal = (z[:, :, None] == za).sum(dim=1)
+        u1 = (2 * less + equal + 1).sum(dim=1) - n1 * (n1 + 1)
+        out[lo:lo + rows] = torch.minimum(u1, 2 * n1 * n2 - u1)
+    return out
 
 
 _erf_vec = np.vectorize(math.erf, otypes=[np.float64])

@@ -13,6 +13,7 @@ from pathlib import Path
 from .. import api
 from ..graph.pivot import split_around_pivot
 from ..io import binfmt
+from ..utils import trace
 from .framework import Param, Tool, host, register
 
 
@@ -37,24 +38,28 @@ class ComponentExtractorTool(Tool):
     def run_impl(self):
         k = self.get("k")
         dev = self.device
-        keys, counts = map(host, api.load_kmers_bin(
-            [str(f) for f in self.get("k-mers")], 0, dev))
-        pivot_keys = host(api.load_kmers_bin(
-            [str(f) for f in self.get("pivot")], 0, dev)[0])
+        with trace.span("extract.load"):
+            keys, counts = map(host, api.load_kmers_bin(
+                [str(f) for f in self.get("k-mers")], 0, dev))
+            pivot_keys = host(api.load_kmers_bin(
+                [str(f) for f in self.get("pivot")], 0, dev)[0])
         self.info(f"{len(keys)} graph k-mers, {len(pivot_keys)} pivot k-mers")
 
         comps = split_around_pivot(keys, counts, k, pivot_keys,
                                    self.get("depth"), device=dev)
         self.info(f"Total {len(comps)} components were found")
+        trace.count("pivot_kmers", sum(c.size for c in comps))
         if not comps:
             self.warn("No components were extracted!")
 
         out = self.get("components-file")
         out.parent.mkdir(parents=True, exist_ok=True)
-        binfmt.write_components_bin(str(out),
-                                    [(c.kmers, c.weight) for c in comps])
+        with trace.span("write.components", out):
+            binfmt.write_components_bin(str(out),
+                                        [(c.kmers, c.weight) for c in comps])
         stat_fp = self.workdir / "components-stat.txt"
-        with open(stat_fp, "w") as fh:
+        with trace.span("write.components_stat", stat_fp), \
+                open(stat_fp, "w") as fh:
             fh.write("# component.no\tcomponent.size\tcomponent.weight"
                      "\tcomponent.nPivotKmers\tusedFreqThreshold\n")
             for i, c in enumerate(comps):

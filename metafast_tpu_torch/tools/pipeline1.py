@@ -323,10 +323,11 @@ class FeaturesCalculatorTool(Tool):
         self.info(f"{len(comps)} components loaded")
 
         if self.get("selected-kmers"):
-            sel, _ = api.load_kmers_bin(
-                [str(f) for f in self.get("selected-kmers")], 0, dev)
-            for c in comps:
-                c.kmers = c.kmers[torch.isin(c.kmers, sel)]
+            with trace.span("features.select"):
+                sel, _ = api.load_kmers_bin(
+                    [str(f) for f in self.get("selected-kmers")], 0, dev)
+                for c in comps:
+                    c.kmers = c.kmers[torch.isin(c.kmers, sel)]
 
         out_dir = self.workdir / "vectors"
         out_dir.mkdir(parents=True, exist_ok=True)

@@ -7,7 +7,10 @@ different map backend in the reference), specific-kmers(-3),
 top-stats-kmers, subset-specific.
 
 Counterpart of metafast_tpu/tools/stats_tools.py (:1-469): host NumPy
-over ``stats.presence``, as there.
+over ``stats.presence``, as there, but for ``stats-kmers``, whose passes
+over the samples run on the run's device (the ``*_device`` builders);
+the float32 chi-squared statistic and the p-values stay host NumPy, each
+computed once a distinct input.
 """
 
 from __future__ import annotations
@@ -16,22 +19,27 @@ import math
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from ..io import binfmt, textfmt
 from ..stats import presence as pres
 from ..stats.tests import (chi2_invcdf_df1, chi2_invcdf_df2, chisq3_reference,
                            chisq_reference, chisq_statistic2,
-                           chisq_statistic3, mannwhitney_p_rows)
-from .framework import ExecutionFailed, Param, Tool, register, workdir_sub
+                           chisq_statistic3, mannwhitney_p_rows,
+                           mannwhitney_p_umin, mannwhitney_umin2_rows_device)
+from ..utils import trace
+from .framework import (ExecutionFailed, Param, Tool, host, register,
+                        workdir_sub)
 
 
-def _load_group_tables(files, b):
+def _load_group_tables(files, b, device=None):
     """Presence tables (count > b) and frequency tables (all records).
 
     Lazy: each returned table set streams one sample file at a time, so
-    peak memory stays O(union keys) + one sample even at CAMI scale."""
-    pres_tabs = pres.LazyTables(files, b)
-    freq_tabs = pres.LazyTables(files, 0)
+    peak memory stays O(union keys) + one sample even at CAMI scale.
+    With a ``device``, the tables are tensors there."""
+    pres_tabs = pres.LazyTables(files, b, device)
+    freq_tabs = pres.LazyTables(files, 0, device)
     totals = pres.sample_totals(freq_tabs)
     return pres_tabs, freq_tabs, totals
 
@@ -69,62 +77,85 @@ class StatsKmersTool(Tool):
         total = SA + SB
         b = self.get("maximal-bad-frequency")
 
-        a_pres, a_freq, a_tot = _load_group_tables(a_files, b)
-        b_pres, b_freq, b_tot = _load_group_tables(b_files, b)
-        keys = pres.union_keys(a_pres + b_pres)
+        dev = self.device
+        a_pres, a_freq, a_tot = _load_group_tables(a_files, b, dev)
+        b_pres, b_freq, b_tot = _load_group_tables(b_files, b, dev)
+        with trace.span("stats.presence.union"):
+            keys = pres.union_keys_device(a_pres + b_pres)
         # chunked per-group presence counts: no [N, S] matrix is ever
         # densified (CAMI-scale N x 9 bytes/cell would be 100s of GB; the
         # reference spends ~1 bit, Long2BitShortaHashMap.java:13-120)
-        n1A, n1B = pres.group_presence_counts(a_pres + b_pres, keys,
-                                              [SA, SB])
+        with trace.span("stats.presence.groups"):
+            n1A, n1B = pres.group_presence_counts_device(
+                a_pres + b_pres, keys, [SA, SB])
         n = len(keys)
 
-        scarce = (n1A + n1B) <= math.ceil(total * 0.05)
-        in_all = (n1A + n1B) == total
-        eligible = ~scarce & ~in_all
+        with trace.span("stats.chi2"):
+            present = n1A + n1B
+            scarce = present <= math.ceil(total * 0.05)
+            in_all = present == total
+            eligible = ~scarce & ~in_all
 
-        crit = chi2_invcdf_df1(1.0 - self.get("p-value-chi2"))
-        passed = chisq_reference(SA - n1A, n1A, SB - n1B, n1B, crit)
-        chi_keys = keys[eligible & passed]
+            # the statistic is a function of (n1A, n1B) alone: computed
+            # once a pair, as chisq_reference computes it, and looked up
+            crit = chi2_invcdf_df1(1.0 - self.get("p-value-chi2"))
+            ga, gb = np.meshgrid(np.arange(SA + 1), np.arange(SB + 1),
+                                 indexing="ij")
+            passed = torch.from_numpy(chisq_reference(
+                SA - ga, ga, SB - gb, gb, crit).ravel()).to(dev)
+            chi_keys = keys[eligible & passed[n1A * (SB + 1) + n1B]]
+            chi_host = host(chi_keys)
+        trace.count("stats_keys", n)
+        trace.count("stats_survivors", len(chi_keys))
 
         out_dir = self.get("output-dir")
         out_dir.mkdir(parents=True, exist_ok=True)
         f_chi = out_dir / "filtered_chisquared.kmers.bin"
-        binfmt.write_kmers_bin(str(f_chi), chi_keys,
-                               np.ones(len(chi_keys), dtype=np.int16))
-        textfmt.write_stat_txt(str(out_dir / "filtered_chisquared.stat.txt"),
-                               np.ones(len(chi_keys), dtype=np.int32))
-        self.info(f"{len(chi_keys)} k-mers survived the chi-squared test "
+        f_chi_stat = out_dir / "filtered_chisquared.stat.txt"
+        with trace.span("write.kmers_bin", f_chi):
+            binfmt.write_kmers_bin(str(f_chi), chi_host,
+                                   np.ones(len(chi_host), dtype=np.int16))
+        with trace.span("write.stat", f_chi_stat):
+            textfmt.write_stat_txt(str(f_chi_stat),
+                                   np.ones(len(chi_host), dtype=np.int32))
+        self.info(f"{len(chi_host)} k-mers survived the chi-squared test "
                   f"(of {n}; {int(scarce.sum())} scarce, "
                   f"{int(in_all.sum())} in all samples)")
 
         # depth-normalized frequencies over the surviving keys only
         # (StatsKmersFinder.java:222-247) — count matrices are densified
         # for the chi-squared SURVIVORS, never the full union
-        mean_sum = float(np.concatenate([a_tot, b_tot]).sum()) / total
-        A = pres.count_matrix(a_freq, chi_keys).astype(np.float64)
-        B = pres.count_matrix(b_freq, chi_keys).astype(np.float64)
-        A = A * mean_sum / a_tot[None, :]
-        B = B * mean_sum / b_tot[None, :]
+        with trace.span("stats.mw"):
+            mean_sum = float(np.concatenate([a_tot, b_tot]).sum()) / total
+            A = pres.count_matrix_device(a_freq, chi_keys).double()
+            B = pres.count_matrix_device(b_freq, chi_keys).double()
+            A = A * mean_sum / torch.from_numpy(a_tot).to(dev)[None, :]
+            B = B * mean_sum / torch.from_numpy(b_tot).to(dev)[None, :]
 
-        pmw = self.get("p-value-mw")
-        if pmw > 0 and len(chi_keys):
-            pvals = mannwhitney_p_rows(A, B)
-            keep = pvals < pmw
-        else:
-            keep = np.ones(len(chi_keys), dtype=bool)
+            pmw = self.get("p-value-mw")
+            if pmw > 0 and len(chi_keys):
+                # U_min takes few values: one p-value each
+                u2, inv = torch.unique(mannwhitney_umin2_rows_device(A, B),
+                                       return_inverse=True)
+                p = mannwhitney_p_umin(host(u2) / 2.0, SA, SB)
+                keep = torch.from_numpy(p < pmw).to(dev)[inv]
+            else:
+                keep = torch.ones(len(chi_keys), dtype=torch.bool,
+                                  device=dev)
 
-        meanA = A.mean(axis=1)
-        meanB = B.mean(axis=1)
-        to_a = keep & (meanA > meanB)
-        to_b = keep & ~(meanA > meanB)
+            # the group means of the kept rows, on the host as before
+            kept = host(chi_keys[keep])
+            meanA = host(A[keep]).mean(axis=1)
+            meanB = host(B[keep]).mean(axis=1)
+            to_a = meanA > meanB
 
         fA = out_dir / "filtered_groupA.kmers.bin"
         fB = out_dir / "filtered_groupB.kmers.bin"
-        _write_group_file(fA, chi_keys[to_a], meanA[to_a])
-        _write_group_file(fB, chi_keys[to_b], meanB[to_b])
+        with trace.span("write.kmers_bin", fA, fB):
+            _write_group_file(fA, kept[to_a], meanA[to_a])
+            _write_group_file(fB, kept[~to_a], meanB[~to_a])
         self.info(f"Total group A k-mers = {int(to_a.sum())}")
-        self.info(f"Total group B k-mers = {int(to_b.sum())}")
+        self.info(f"Total group B k-mers = {int((~to_a).sum())}")
         self.set_output("resulting-kmers-file", [str(fA)])
         self.set_output("filtered-chisquared", str(f_chi))
         self.set_output("group-a-file", str(fA))

@@ -7,6 +7,7 @@ statistics).  Both are host NumPy with float32 chi-squared arithmetic.
 
 import numpy as np
 import pytest
+import torch
 
 from metafast_tpu.stats import tests as jax_st
 from metafast_tpu_torch.stats import tests as st
@@ -70,3 +71,62 @@ def test_stats_function_matches_jax(case):
         assert 0 < got.sum() < len(got)       # some pass, some fail
     if name == "_rankdata_rows":
         assert (got[0] == 6.0).all()          # one tie run over the row
+
+
+def _lazy_pair(tmp_path, threshold: int):
+    """The same five seeded sample files as two LazyTables: host NumPy,
+    and tensors on the CPU device (the device twins' input)."""
+    from metafast_tpu_torch.io import binfmt
+    from metafast_tpu_torch.stats import presence as pres
+
+    rng = np.random.default_rng(52)
+    files = []
+    for s in range(5):
+        keys = rng.choice(4000, 900 + 50 * s, replace=False) - 2000
+        counts = rng.integers(1, 6, len(keys)).astype(np.int16)
+        files.append(str(tmp_path / f"s{s}.kmers.bin"))
+        binfmt.write_kmers_bin(files[-1], keys.astype(np.int64), counts)
+    return (pres.LazyTables(files, threshold),
+            pres.LazyTables(files, threshold, torch.device("cpu")))
+
+
+def _device_case(name, tmp_path, monkeypatch):
+    """(NumPy result, device twin's result) of one builder."""
+    from metafast_tpu_torch.stats import presence as pres
+
+    if name.startswith("mannwhitney"):
+        if name.endswith("chunked"):            # 7 rows a chunk
+            monkeypatch.setattr(st, "_MW_CELLS", 7 * 11 * 5)
+        a, b = _ranked_rows()
+        u2 = st.mannwhitney_umin2_rows_device(torch.from_numpy(a),
+                                              torch.from_numpy(b))
+        return (st.mannwhitney_p_rows(a, b),
+                st.mannwhitney_p_umin(u2.numpy() / 2.0, 5, 6))
+    host, dev = _lazy_pair(tmp_path, 2 if name.endswith("b2") else 0)
+    keys = pres.union_keys(host)
+    if name.startswith("union_keys"):
+        return keys, pres.union_keys_device(dev).numpy()
+    if name == "group_presence_counts":
+        return (np.stack(pres.group_presence_counts(host, keys, [2, 3])),
+                torch.stack(pres.group_presence_counts_device(
+                    dev, torch.from_numpy(keys), [2, 3])).numpy())
+    if name == "sample_totals":
+        return pres.sample_totals(host), pres.sample_totals(dev)
+    # count_matrix over every other key and keys absent everywhere
+    sub = np.concatenate([keys[::2], [-5000, 5000]])
+    return (pres.count_matrix(host, sub),
+            pres.count_matrix_device(dev, torch.from_numpy(sub)).numpy())
+
+
+@pytest.mark.parametrize("name", ["union_keys", "union_keys_b2",
+                                  "group_presence_counts", "sample_totals",
+                                  "count_matrix", "mannwhitney",
+                                  "mannwhitney_chunked"])
+def test_device_twin_matches_numpy(name, tmp_path, monkeypatch):
+    """stats-kmers' device builders give the NumPy builders' results,
+    dtype and all; Mann-Whitney's p from twice U_min equals the ranked
+    p-values, ties and halves included."""
+    want, got = _device_case(name, tmp_path, monkeypatch)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    assert len(want) > 0

@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
-from torch_helpers import check_kmer_counter_copies, write_samples
+from torch_helpers import (assert_same_tree, check_kmer_counter_copies,
+                           write_group_samples, write_samples)
 
 from metafast_tpu_torch import api as tapi
 from metafast_tpu_torch import cli
@@ -199,3 +200,73 @@ def test_kmer_counter_copies_back_the_histogram_not_the_table(
     monkeypatch.setattr(trace, "d2h", lambda *ts: trace.count(
         "d2h_bytes", sum(t.nbytes for t in ts)))
     check_kmer_counter_copies(tmp_path, torch.device("cpu"))
+
+
+# the spans pipeline 5 adds, each in its step of stats-features
+SF_SPANS = {
+    "stats.presence.union": "stats-kmers",
+    "stats.presence.groups": "stats-kmers",
+    "stats.chi2": "stats-kmers",
+    "stats.mw": "stats-kmers",
+    "extract.load": "component-extractor",
+    "pivot.index": "component-extractor",
+    "pivot.traverse": "component-extractor",
+    "features.select": "features-calculator",
+}
+
+
+@pytest.fixture(scope="module")
+def sf_jobs(tmp_path_factory):
+    """One stats-features job without the profiler, one under it."""
+    root = tmp_path_factory.mktemp("torch_trace_sf")
+    files, _ = write_group_samples(root, ["pos"] * 3 + ["neg"] * 3, 16_000,
+                                   5_000, 3_000, 12, seed=14)
+    args = ["-t", "stats-features", "-k", "31", "-pos", *files[:3],
+            "-neg", *files[3:], "--device", "cpu"]
+    trace.reset()
+    assert cli.main(args + ["-w", str(root / "off")]) == 0
+    off_counts = trace.counters()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert cli.main(args + ["-w", str(root / "on")]) == 0
+    on_counts = trace.counters()
+    trace.reset()
+    prof.export_chrome_trace(str(root / "trace.json"))
+    events = json.loads((root / "trace.json").read_text())["traceEvents"]
+    marks = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    return dict(off=root / "off", on=root / "on", off_counts=off_counts,
+                on_counts=on_counts, marks=marks)
+
+
+def _steps_of(records):
+    """(span, its enclosing depth-1 step) of every span of a job's log."""
+    out, stack = [], []
+    for name, started in records:
+        if started:
+            if "." in name and len(stack) >= 2:
+                out.append((name, stack[1]))
+            stack.append(name)
+        else:
+            stack.pop()
+    return out
+
+
+def test_stats_features_spans_nest_in_their_steps(sf_jobs):
+    on = _nest(_records(sf_jobs["on"] / "log"))
+    assert all(d >= 2 for n, d in on if "." in n)
+    found = _steps_of(_records(sf_jobs["on"] / "log"))
+    for span, step in SF_SPANS.items():
+        assert (span, step) in found, span
+        assert {s for n, s in found if n == span} == {step}, span
+    assert {"mf." + n for n in SF_SPANS} <= sf_jobs["marks"]
+    for name in ("stats_keys", "stats_survivors", "pivot_kmers"):
+        assert sf_jobs["on_counts"][name] > 0, name
+    assert (sf_jobs["on_counts"]["stats_survivors"]
+            < sf_jobs["on_counts"]["stats_keys"])
+
+
+def test_untraced_stats_features_job_logs_no_span(sf_jobs):
+    off = _records(sf_jobs["off"] / "log")
+    assert not [n for n, _ in off if "." in n]
+    assert sf_jobs["off_counts"] == {}
+    # the profiler changes no output file
+    assert_same_tree(sf_jobs["off"], sf_jobs["on"])
