@@ -31,6 +31,11 @@ Counterpart of metafast_tpu/graph/pivot.py (:1-445).  Where it departs:
     (canonical neighbors + ``lookup.find``, a searchsorted) at any size;
     the JAX package routes by table size (``_DEVICE_MIN``) and by whether
     its backend is a TPU, and joins (hi, lo) uint32 pairs by sorting;
+  - at depth 1 the native traversal's int32 tables are built on the
+    run's device too (``depth1_index``: canonical neighbors and a
+    last-of-run searchsorted, block by block into host tables), where
+    the JAX package builds them in the native hash on the host
+    (``build_neighbor_index``, now used by ``graph/colored`` alone);
   - the native library is never missing in the port (a failed build
     raises), so the "no library" branch is gone; a members-buffer
     overflow of the native traversal still moves to the Python spec,
@@ -126,6 +131,38 @@ def neighbor_index(keys: torch.Tensor, k: int):
     return tuple(out)
 
 
+# keys of one row block of ``depth1_index``: its [B, 4] int64
+# temporaries then take a few hundred MB of the device whatever the
+# graph's size
+_INDEX_BLOCK = 1 << 22
+
+
+def depth1_index(keys: torch.Tensor, k: int):
+    """(left, right) [N, 4] int32 host arrays of the native traversal
+    (pivot_bfs_depth1), built on the device ``keys`` lies on: column j
+    holds the index of the canonical neighbor through nucleotide j, -1
+    where it is absent.  ``keys`` is sorted; where a key repeats (one
+    .kmers.bin is sorted but not deduplicated) its index is the last of
+    the run, the one the native hash keeps (build_neighbor_index), where
+    ``neighbor_index`` gives the first.  Built in row blocks of
+    _INDEX_BLOCK keys, each copied into its slice of the host tables."""
+    n = keys.numel()
+    nuc = torch.arange(4, dtype=torch.int64, device=keys.device)
+    tables = (torch.empty((n, 4), dtype=torch.int32),
+              torch.empty((n, 4), dtype=torch.int32))
+    for s in range(0, n, _INDEX_BLOCK):
+        block = keys[s:s + _INDEX_BLOCK, None]
+        for out, shift in zip(tables, (bp.shift_left, bp.shift_right)):
+            can = bp.canonical(shift(block, nuc, k), k)
+            idx = torch.searchsorted(keys, can, right=True).sub_(1)
+            found = keys[idx.clamp(min=0)] == can
+            part = torch.where(found, idx, -1).to(torch.int32)
+            trace.d2h(part)
+            out[s:s + len(part)].copy_(part)
+    trace.count("pivot_index_keys", n)
+    return tuple(t.numpy() for t in tables)
+
+
 class _Graph:
     """Index-space view: neighbor indices (or -1) per key.
 
@@ -211,14 +248,16 @@ def split_around_pivot(keys: np.ndarray, counts: np.ndarray, k: int,
     order and the visited set ARE the semantics — and per-node Python
     costs ~20 us where the native loop does ~50M nodes/s, which is what
     makes the 10^7-key chain-heavy worst case tractable (VERDICT r4 #4).
-    Deeper traversals, and a depth-1 one whose members overflow the
-    native buffer, run the Python spec over ``_Graph`` tables built on
-    ``device``.
+    Its int32 index tables are built on ``device`` (``depth1_index``)
+    and copied to the host.  Deeper traversals, and a depth-1 one whose
+    members overflow the native buffer, run the Python spec over
+    ``_Graph`` tables built on ``device``.
     """
     keys = np.asarray(keys, dtype=np.int64)
     counts = np.asarray(counts, dtype=np.int64)
     if depth == 1 and not force_python:
-        out = _split_around_pivot_native(keys, counts, k, pivot_keys)
+        out = _split_around_pivot_native(keys, counts, k, pivot_keys,
+                                         device)
         if out is not None:
             return out
     with trace.span("pivot.index"):
@@ -239,10 +278,11 @@ def split_around_pivot(keys: np.ndarray, counts: np.ndarray, k: int,
 
 def native_neighbor_index(lib, keys: np.ndarray, k: int):
     """(left, right) [N, 4] int32 neighbor indices (-1 = absent) of a key
-    table in one native hash pass (fastparse.cpp build_neighbor_index,
-    the nucleotide order of right_/left_neighbors_np — probe order is
-    semantics): ~8 s at 10^7 keys vs ~50 s for the numpy canonical build
-    + searchsorted."""
+    table in one native hash pass on the host (fastparse.cpp
+    build_neighbor_index, the nucleotide order of right_/left_neighbors_np
+    — probe order is semantics; a repeated key maps to the last index of
+    its run).  Only ``graph/colored`` indexes this way; the depth-1 pivot
+    traversal takes ``depth1_index``, built on the run's device."""
     n = len(keys)
     log2 = max(10, int(np.ceil(np.log2(max(n, 2)))) + 1)
     left = np.empty((n, 4), dtype=np.int32)
@@ -257,16 +297,18 @@ def native_neighbor_index(lib, keys: np.ndarray, k: int):
     return left, right
 
 
-def _split_around_pivot_native(keys, counts, k, pivot_keys
+def _split_around_pivot_native(keys, counts, k, pivot_keys, device
                                ) -> list[PivotComponent] | None:
-    """Depth-1 extraction via the native traversal; None on a members
-    overflow (the caller falls back to the Python spec)."""
+    """Depth-1 extraction via the native traversal over index tables
+    built on ``device``; None on a members overflow (the caller falls
+    back to the Python spec)."""
     lib = native_library()
     n = len(keys)
     if n == 0:
         return []
     with trace.span("pivot.index"):
-        left, right = native_neighbor_index(lib, keys, k)
+        trace.h2d(device, keys)
+        left, right = depth1_index(torch.from_numpy(keys).to(device), k)
 
     piv_np = _pivot_flags(keys, pivot_keys).astype(np.uint8)
     starts = np.nonzero(piv_np)[0].astype(np.int64)

@@ -2,8 +2,9 @@
 
 Counterpart of metafast_tpu/tools/extract_tools.py (:18-63); parity:
 src/tools/ComponentExtractorMain.java.  The tables are loaded on
-``ctx.device`` and come to the host once for the native traversal; a
-Python traversal builds its index tables on ``ctx.device``.
+``ctx.device`` and come to the host once for the traversal; both the
+native (depth 1) and the Python traversal have their neighbor-index
+tables built on ``ctx.device``.
 """
 
 from __future__ import annotations

@@ -296,6 +296,42 @@ def test_pivot_on_gpu_matches_cpu(depth, cuda_device):
         assert (g.weight, g.n_pivot) == (c.weight, c.n_pivot)
 
 
+@pytest.mark.parametrize("repeated", [False, True])
+def test_depth1_index_on_gpu_matches_cpu(repeated, cuda_device, monkeypatch):
+    """The depth-1 route's int32 tables built on the card, over several
+    row blocks, equal the CPU's and the native hash's, and so do the
+    components the native traversal finds over them; ``repeated`` keys
+    (one .kmers.bin, sorted but not deduplicated) map to the last index
+    of their run."""
+    from metafast_tpu_torch.utils.native import native_library
+
+    rng = np.random.default_rng(7)
+    shared = "".join(rng.choice(list("ACGT"), 2_000))
+    keys = np.unique(np.concatenate([
+        sequence_kmers("".join(rng.choice(list("ACGT"), 3_000)) + shared
+                       + "".join(rng.choice(list("ACGT"), 3_000)), 31)
+        for _ in range(3)]))
+    if repeated:
+        keys = np.sort(np.repeat(keys, rng.integers(1, 4, len(keys))))
+    counts = rng.integers(2, 9, len(keys))
+    pivots = rng.choice(np.unique(keys), 300, replace=False)
+    monkeypatch.setattr(pivot, "_INDEX_BLOCK", 1 << 12)
+    assert len(keys) > 3 * pivot._INDEX_BLOCK
+    got = pivot.depth1_index(torch.from_numpy(keys).to(cuda_device), 31)
+    want = pivot.depth1_index(torch.from_numpy(keys), 31)
+    native = pivot.native_neighbor_index(native_library(), keys, 31)
+    for g, w, n in zip(got, want, native):
+        assert g.dtype == np.int32
+        assert np.array_equal(g, w) and np.array_equal(g, n)
+    gc = pivot.split_around_pivot(keys, counts, 31, pivots,
+                                  device=cuda_device)
+    cc = pivot.split_around_pivot(keys, counts, 31, pivots, device="cpu")
+    assert len(gc) == len(cc) > 0
+    for g, c in zip(gc, cc):
+        assert np.array_equal(g.kmers, c.kmers)
+        assert (g.weight, g.n_pivot) == (c.weight, c.n_pivot)
+
+
 def test_world1_nccl_group_matches_single_device(tmp_path, cuda_device):
     """The multi-device path in a one-rank NCCL group on the card: the
     sharded count, doubling and star contraction equal the single-device

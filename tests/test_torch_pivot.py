@@ -2,21 +2,25 @@
 
 Seeded multi-genome k-mer tables (as tests/test_pivot.py builds them)
 with a random subset of pivots go through split_around_pivot of both
-packages: depth 1 through the native traversal, depths 2 and 3 through
-the Python spec over the port's device-built index tables (on the CPU
-here).  Every component must be equal field by field, in list order.
+packages: depth 1 through the native traversal (the port's index tables
+built on the device, the JAX package's in the native hash), depths 2 and
+3 through the Python spec over the port's device-built index tables (on
+the CPU here).  Every component must be equal field by field, in list
+order.
 """
 
 import logging
 
 import numpy as np
 import pytest
+import torch
 
 from metafast_tpu.graph import colored as jax_col
 from metafast_tpu.graph import pivot as jax_pivot
 from metafast_tpu.oracle import reference as oracle
 from metafast_tpu_torch.graph import colored as col
 from metafast_tpu_torch.graph import pivot
+from metafast_tpu_torch.utils.kmers import sequence_kmers
 from metafast_tpu_torch.utils.native import native_library
 
 K = 13
@@ -61,6 +65,60 @@ def test_graph_index_matches_jax(seed):
     left, right = pivot.native_neighbor_index(native_library(), keys, K)
     assert got.right == right.tolist() and got.left == left.tolist()
     assert sum(j >= 0 for row in got.right for j in row) > len(keys) // 2
+
+
+def _index_table(kind: str, k: int):
+    """A sorted int64 key table of one ``kind``: "random" canonical keys
+    (few neighbours), "chain" (the keys of three genomes sharing a
+    region), or "repeated" (the chain table with some keys repeated, as
+    one .kmers.bin is sorted but not deduplicated)."""
+    rng = np.random.default_rng(k)
+    if kind == "random":
+        keys = rng.integers(0, 1 << (2 * k), 4_000, dtype=np.int64)
+        return np.unique(pivot.canonical_np(keys, k))
+    shared = "".join(rng.choice(list("ACGT"), 600))
+    keys = np.unique(np.concatenate([
+        sequence_kmers("".join(rng.choice(list("ACGT"), 900)) + shared
+                       + "".join(rng.choice(list("ACGT"), 900)), k)
+        for _ in range(3)]))
+    if kind == "chain":
+        return keys
+    return np.sort(np.repeat(keys, rng.integers(1, 4, len(keys))))
+
+
+@pytest.mark.parametrize("kind", ["random", "chain", "repeated"])
+@pytest.mark.parametrize("k", [23, 31])
+def test_depth1_index_matches_native_hash(k, kind, monkeypatch):
+    """The depth-1 route's int32 (left, right) tables, built in several
+    row blocks, equal the native hash's: a repeated key maps to the last
+    index of its run."""
+    keys = _index_table(kind, k)
+    monkeypatch.setattr(pivot, "_INDEX_BLOCK", 1_000)
+    assert len(keys) > 2 * pivot._INDEX_BLOCK
+    left, right = pivot.depth1_index(torch.from_numpy(keys), k)
+    want_left, want_right = pivot.native_neighbor_index(
+        native_library(), keys, k)
+    assert left.dtype == right.dtype == np.int32
+    assert np.array_equal(left, want_left)
+    assert np.array_equal(right, want_right)
+    if kind != "random":
+        assert (right >= 0).sum() > len(keys) // 2
+    if kind == "repeated":
+        first = pivot.neighbor_index(torch.from_numpy(keys), k)[0].numpy()
+        assert not np.array_equal(first, right)
+
+
+@pytest.mark.parametrize("k", [23, 31])
+def test_split_around_pivot_repeated_keys_matches_jax(k):
+    """At depth 1 on a table with repeated keys the port's components
+    equal the JAX package's, whose index is the native hash."""
+    keys = _index_table("repeated", k)
+    rng = np.random.default_rng(k + 1)
+    counts = rng.integers(1, 9, len(keys))
+    pivots = np.sort(rng.choice(np.unique(keys), 40, replace=False))
+    want = jax_pivot.split_around_pivot(keys, counts, k, pivots)
+    got = pivot.split_around_pivot(keys, counts, k, pivots, device="cpu")
+    _assert_same_components(got, want)
 
 
 @pytest.mark.parametrize("depth", [1, 2, 3])

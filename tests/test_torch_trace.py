@@ -10,13 +10,16 @@ import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
+from torch_helpers import cuda_device  # noqa: F401
 from torch_helpers import (assert_same_tree, check_kmer_counter_copies,
                            write_group_samples, write_samples)
 
 from metafast_tpu_torch import api as tapi
 from metafast_tpu_torch import cli
+from metafast_tpu_torch.graph import pivot
 from metafast_tpu_torch.tools import framework as fw
 from metafast_tpu_torch.utils import trace
+from metafast_tpu_torch.utils.kmers import sequence_kmers
 
 ARGS = ["-k", "31", "-b1", "100", "-b2", "3000", "--device", "cpu",
         "--finish", "dist-matrix-calculator"]
@@ -258,7 +261,8 @@ def test_stats_features_spans_nest_in_their_steps(sf_jobs):
         assert (span, step) in found, span
         assert {s for n, s in found if n == span} == {step}, span
     assert {"mf." + n for n in SF_SPANS} <= sf_jobs["marks"]
-    for name in ("stats_keys", "stats_survivors", "pivot_kmers"):
+    for name in ("stats_keys", "stats_survivors", "pivot_kmers",
+                 "pivot_index_keys"):
         assert sf_jobs["on_counts"][name] > 0, name
     assert (sf_jobs["on_counts"]["stats_survivors"]
             < sf_jobs["on_counts"]["stats_keys"])
@@ -270,3 +274,32 @@ def test_untraced_stats_features_job_logs_no_span(sf_jobs):
     assert sf_jobs["off_counts"] == {}
     # the profiler changes no output file
     assert_same_tree(sf_jobs["off"], sf_jobs["on"])
+
+
+@pytest.mark.parametrize(
+    "on_card", [False, pytest.param(True, marks=pytest.mark.cuda)])
+def test_traced_depth1_extraction_counts_its_index(on_card, request):
+    """A traced depth-1 extraction counts the keys it indexed on the
+    device; on the card also the keys' upload and the two int32 tables'
+    copy back (a tensor on the CPU moves nothing)."""
+    device = (request.getfixturevalue("cuda_device") if on_card
+              else torch.device("cpu"))
+    rng = np.random.default_rng(9)
+    keys = np.unique(np.concatenate([
+        sequence_kmers("".join(rng.choice(list("ACGT"), 4_000)), 31)
+        for _ in range(2)]))
+    counts = rng.integers(2, 9, len(keys))
+    pivots = rng.choice(keys, 50, replace=False)
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        comps = pivot.split_around_pivot(keys, counts, 31, pivots,
+                                         device=device)
+    got = trace.counters()
+    trace.reset()
+    assert comps
+    assert got["pivot_index_keys"] == len(keys)
+    if on_card:
+        assert got["d2h_bytes"] == 2 * 4 * 4 * len(keys)
+        assert got["h2d_bytes"] == 8 * len(keys)
+    else:
+        assert got.get("d2h_bytes", 0) == got.get("h2d_bytes", 0) == 0
