@@ -854,7 +854,7 @@ def phase_groups(dev, workdir: Path) -> None:
         f"({len(keys)} keys)")
 
     # the pivot graph's neighbour index on the card against the CPU's and
-    # the native hash index
+    # the depth-1 route's int32 tables built on the CPU
     if len(graph) <= PIVOT_GRAPH_MIN:
         raise RuntimeError(f"groups: the positive graph has {len(graph)} "
                            f"keys, not more than {PIVOT_GRAPH_MIN}")
@@ -864,13 +864,14 @@ def phase_groups(dev, workdir: Path) -> None:
         tables[device] = [t.cpu() for t in pivot.neighbor_index(
             torch.from_numpy(graph).to(device), K)]
         secs[device] = time.perf_counter() - t0
-    left, right = pivot.native_neighbor_index(native_library(), graph, K)
+    left, right = pivot.depth1_index(torch.from_numpy(graph), K)
     if not (all(torch.equal(a, b)
                 for a, b in zip(tables["cuda"], tables["cpu"]))
             and np.array_equal(tables["cuda"][0].numpy(), right)
             and np.array_equal(tables["cuda"][1].numpy(), left)):
-        raise RuntimeError("groups: neighbour index on cuda != cpu / native")
-    log(f"check groups neighbour index cuda == cpu == native over "
+        raise RuntimeError("groups: neighbour index on cuda != cpu / "
+                           "depth-1 tables")
+    log(f"check groups neighbour index cuda == cpu == depth-1 tables over "
         f"{len(graph)} keys: cuda_s={secs['cuda']:.3f} "
         f"cpu_s={secs['cpu']:.3f}")
 

@@ -16,11 +16,14 @@ including table build (1M-node chain in ~6 s) — fine for the tool's
 niche scale of a few million k-mers.  Bulk component extraction goes
 through the device label propagation in graph/components.py.
 
-Counterpart of metafast_tpu/graph/colored.py (:1-275), host NumPy and the
-port's native library as there.  The native library is never missing in
-the port (a failed build raises), so the JAX package's "no library"
-branch is gone; a members-buffer overflow still moves to the Python spec,
-with a warning.
+Counterpart of metafast_tpu/graph/colored.py (:1-275).  Where it departs:
+  - the native traversal's int32 index tables are built on the run's
+    device (``pivot.depth1_index``, as the depth-1 pivot traversal's),
+    where the JAX package builds them in a native hash on the host; the
+    traversal itself is the port's native library, as there;
+  - the native library is never missing in the port (a failed build
+    raises), so the "no library" branch is gone; a members-buffer
+    overflow still moves to the Python spec, with a warning.
 """
 
 from __future__ import annotations
@@ -29,10 +32,11 @@ import logging
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
+from ..utils import trace
 from ..utils.native import native_library
-from .pivot import (left_neighbors_np, native_neighbor_index,
-                    right_neighbors_np)
+from .pivot import depth1_index, left_neighbors_np, right_neighbors_np
 
 # a child of the launcher's logger, so warnings reach the run's log
 _log = logging.getLogger("metafast_torch.graph")
@@ -84,8 +88,11 @@ class ColoredComponent:
 def split_colored(keys: np.ndarray, values: np.ndarray, k: int,
                   n_groups: int = 3, separate: bool = False,
                   linear: bool = False, n_comps: int = -1,
-                  perc: float = 0.9) -> dict[int, list[ColoredComponent]]:
-    """All colored components, keyed by color (splitStrategy)."""
+                  perc: float = 0.9,
+                  device: str | torch.device = "cuda"
+                  ) -> dict[int, list[ColoredComponent]]:
+    """All colored components, keyed by color (splitStrategy).  The
+    default mode's index tables are built on ``device``."""
     keys = np.asarray(keys, dtype=np.int64)
     order = np.argsort(keys)
     keys, values = keys[order], np.asarray(values, dtype=np.int64)[order]
@@ -94,7 +101,7 @@ def split_colored(keys: np.ndarray, values: np.ndarray, k: int,
 
     if not linear and N:
         native = _split_colored_native(keys, color, k, n_groups,
-                                       separate, n_comps)
+                                       separate, n_comps, device)
         if native is not None:
             return native
 
@@ -133,17 +140,18 @@ def split_colored(keys: np.ndarray, values: np.ndarray, k: int,
     return ans
 
 
-def _split_colored_native(keys, color, k, n_groups, separate, n_comps
-                          ) -> dict[int, list[ColoredComponent]] | None:
+def _split_colored_native(keys, color, k, n_groups, separate, n_comps,
+                          device) -> dict[int, list[ColoredComponent]] | None:
     """Default-mode traversal in C++ (fastparse.cpp colored_bfs — the
-    exact mirror of _bfs below, ~50M nodes/s vs ~170K/s Python); index
-    tables built in one native hash pass.  None on a members overflow
-    (the caller falls back to the Python spec)."""
+    exact mirror of _bfs below, ~50M nodes/s vs ~170K/s Python) over
+    index tables built on ``device``.  None on a members overflow (the
+    caller falls back to the Python spec)."""
     import ctypes
 
     lib = native_library()
     N = len(keys)
-    left, right = native_neighbor_index(lib, keys, k)
+    trace.h2d(device, keys)
+    left, right = depth1_index(torch.from_numpy(keys).to(device), k)
     p32 = ctypes.POINTER(ctypes.c_int32)
     p64 = ctypes.POINTER(ctypes.c_int64)
     # the python path iterates right columns first, then left

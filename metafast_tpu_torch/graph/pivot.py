@@ -33,9 +33,9 @@ Counterpart of metafast_tpu/graph/pivot.py (:1-445).  Where it departs:
     its backend is a TPU, and joins (hi, lo) uint32 pairs by sorting;
   - at depth 1 the native traversal's int32 tables are built on the
     run's device too (``depth1_index``: canonical neighbors and a
-    last-of-run searchsorted, block by block into host tables), where
-    the JAX package builds them in the native hash on the host
-    (``build_neighbor_index``, now used by ``graph/colored`` alone);
+    last-of-run searchsorted, block by block into host tables; the
+    colored traversal of ``graph/colored`` takes the same tables), where
+    the JAX package builds them in a native hash on the host;
   - the native library is never missing in the port (a failed build
     raises), so the "no library" branch is gone; a members-buffer
     overflow of the native traversal still moves to the Python spec,
@@ -143,7 +143,7 @@ def depth1_index(keys: torch.Tensor, k: int):
     holds the index of the canonical neighbor through nucleotide j, -1
     where it is absent.  ``keys`` is sorted; where a key repeats (one
     .kmers.bin is sorted but not deduplicated) its index is the last of
-    the run, the one the native hash keeps (build_neighbor_index), where
+    the run, the one the JAX package's native hash keeps, where
     ``neighbor_index`` gives the first.  Built in row blocks of
     _INDEX_BLOCK keys, each copied into its slice of the host tables."""
     n = keys.numel()
@@ -274,27 +274,6 @@ def split_around_pivot(keys: np.ndarray, counts: np.ndarray, k: int,
                 continue
             out.append(_bfs(g, int(start), piv, pivot_done, depth))
         return _order(out)
-
-
-def native_neighbor_index(lib, keys: np.ndarray, k: int):
-    """(left, right) [N, 4] int32 neighbor indices (-1 = absent) of a key
-    table in one native hash pass on the host (fastparse.cpp
-    build_neighbor_index, the nucleotide order of right_/left_neighbors_np
-    — probe order is semantics; a repeated key maps to the last index of
-    its run).  Only ``graph/colored`` indexes this way; the depth-1 pivot
-    traversal takes ``depth1_index``, built on the run's device."""
-    n = len(keys)
-    log2 = max(10, int(np.ceil(np.log2(max(n, 2)))) + 1)
-    left = np.empty((n, 4), dtype=np.int32)
-    right = np.empty((n, 4), dtype=np.int32)
-    keys_c = np.ascontiguousarray(keys, dtype=np.int64)
-    p32 = ctypes.POINTER(ctypes.c_int32)
-    if lib.build_neighbor_index(
-            keys_c.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), n, k, log2,
-            left.ctypes.data_as(p32), right.ctypes.data_as(p32)) != 0:
-        raise MemoryError(f"build_neighbor_index: no memory for a 2^{log2} "
-                          "slot hash table")
-    return left, right
 
 
 def _split_around_pivot_native(keys, counts, k, pivot_keys, device

@@ -78,9 +78,6 @@ def load_library():
     lib.build_stream3_cols.argtypes = [p8, i64, p32, i64,
                                        ctypes.c_int32, pu32, pu32,
                                        pu32, pu32, i64]
-    lib.build_neighbor_index.restype = ctypes.c_int32
-    lib.build_neighbor_index.argtypes = [p64, i64, ctypes.c_int32,
-                                         ctypes.c_int32, p32, p32]
     pi8 = ctypes.POINTER(ctypes.c_int8)
     lib.colored_bfs.restype = i64
     lib.colored_bfs.argtypes = [p32, pi8, i64, ctypes.c_int32,

@@ -9,11 +9,12 @@
   correction (used at src/tools/StatsKmersFinder.java:222-247)
 - chi2 critical value: inverse CDF of ChiSquared(df=1) at 1 - p
 
-The port's copy of metafast_tpu/stats/tests.py, host NumPy as there: the
-float32 rounding of the chi-squared statistic is the reference's
-semantics, so it is not re-derived in torch.  The one device function,
-``mannwhitney_umin2_rows_device``, ranks rows in exact integers; the
-p-values stay here.
+The port's copy of metafast_tpu/stats/tests.py.  The chi-squared
+statistic stays host NumPy as there: its float32 rounding is the
+reference's semantics, so it is not re-derived in torch.  Mann-Whitney
+ranks rows on the device in exact integers (``mannwhitney_umin2_rows``),
+NaN where the JAX package's stable argsort puts it; the p-values are
+host NumPy, one a distinct U_min.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import math
 
 import numpy as np
 import torch
+
+from ..utils import trace
 
 
 def chi2_invcdf_df1(p: float) -> float:
@@ -170,41 +173,6 @@ def chisq_statistic2(n0A, n1A, n0B, n1B) -> np.ndarray:
     return kk
 
 
-def _rankdata_rows(x: np.ndarray) -> np.ndarray:
-    """Average ranks per row (ties averaged), 1-based — commons-math
-    NaturalRanking(TiesStrategy.AVERAGE)."""
-    n_rows, n = x.shape
-    order = np.argsort(x, axis=1, kind="stable")
-    xs = np.take_along_axis(x, order, axis=1)
-    pos = np.broadcast_to(np.arange(n), (n_rows, n))
-    is_start = np.ones((n_rows, n), dtype=bool)
-    is_start[:, 1:] = xs[:, 1:] != xs[:, :-1]
-    is_end = np.ones((n_rows, n), dtype=bool)
-    is_end[:, :-1] = is_start[:, 1:]
-    # first/last position of each tie run, broadcast to members
-    first = np.maximum.accumulate(np.where(is_start, pos, 0), axis=1)
-    carry = np.maximum.accumulate(
-        np.where(is_end[:, ::-1], pos, 0), axis=1)
-    last = (n - 1) - carry[:, ::-1]
-    ranks_sorted = (first + last) / 2.0 + 1.0
-    ranks = np.empty_like(ranks_sorted)
-    np.put_along_axis(ranks, order, ranks_sorted, axis=1)
-    return ranks
-
-
-def mannwhitney_p_rows(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-    """Two-sided Mann-Whitney p per row of (a [N, n1], b [N, n2])."""
-    a = np.asarray(a, dtype=np.float64)
-    b = np.asarray(b, dtype=np.float64)
-    n1, n2 = a.shape[1], b.shape[1]
-    z = np.concatenate([a, b], axis=1)
-    ranks = _rankdata_rows(z)
-    sum_ranks_a = ranks[:, :n1].sum(axis=1)
-    u1 = sum_ranks_a - n1 * (n1 + 1) / 2.0
-    u2 = n1 * n2 - u1
-    return mannwhitney_p_umin(np.minimum(u1, u2), n1, n2)
-
-
 def mannwhitney_p_umin(umin, n1: int, n2: int) -> np.ndarray:
     """Two-sided Mann-Whitney p of each U_min, for groups of n1 and n2."""
     mu = n1 * n2 / 2.0
@@ -218,12 +186,14 @@ def mannwhitney_p_umin(umin, n1: int, n2: int) -> np.ndarray:
 _MW_CELLS = 1 << 27
 
 
-def mannwhitney_umin2_rows_device(a: torch.Tensor,
-                                  b: torch.Tensor) -> torch.Tensor:
+def mannwhitney_umin2_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Twice U_min per row of (a [N, n1], b [N, n2]), an exact int64, on
-    their device; ``mannwhitney_p_umin(u / 2, ...)`` is then
-    ``mannwhitney_p_rows``.  Twice a value's average rank among ties is
-    2 * (#smaller) + #equal + 1, so no rank is rounded."""
+    their device.  Twice a number's average rank among ties is
+    2 * (#smaller) + #equal + 1, NaNs not counted.  A NaN ranks as the JAX
+    package's stable argsort puts it: after every number, a tie run of
+    its own, NaNs in column order, so a NaN at column j of
+    concat(a, b) has twice the rank 2 * (#numbers in the row + #NaNs
+    before j) + 2.  No rank is rounded."""
     n1, n2 = a.shape[1], b.shape[1]
     rows = max(1, _MW_CELLS // ((n1 + n2) * max(n1, 1)))
     out = torch.empty(len(a), dtype=torch.int64, device=a.device)
@@ -232,9 +202,26 @@ def mannwhitney_umin2_rows_device(a: torch.Tensor,
         za = z[:, None, :n1]
         less = (z[:, :, None] < za).sum(dim=1)
         equal = (z[:, :, None] == za).sum(dim=1)
-        u1 = (2 * less + equal + 1).sum(dim=1) - n1 * (n1 + 1)
+        nan = z.isnan()
+        numbers = (~nan).sum(dim=1, keepdim=True)
+        nan_a = nan[:, :n1]
+        before = nan_a.cumsum(dim=1) - nan_a.long()
+        rank2 = torch.where(nan_a, 2 * (numbers + before) + 2,
+                            2 * less + equal + 1)
+        u1 = rank2.sum(dim=1) - n1 * (n1 + 1)
         out[lo:lo + rows] = torch.minimum(u1, 2 * n1 * n2 - u1)
     return out
+
+
+def mannwhitney_p(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Two-sided Mann-Whitney p per row of (a [N, n1], b [N, n2]), float64
+    on their device: twice U_min on the device, then
+    ``mannwhitney_p_umin`` on the host once for each distinct U_min, which
+    takes few values."""
+    u2, inv = torch.unique(mannwhitney_umin2_rows(a, b), return_inverse=True)
+    trace.d2h(u2)
+    p = mannwhitney_p_umin(u2.cpu().numpy() / 2.0, a.shape[1], b.shape[1])
+    return torch.from_numpy(p).to(a.device)[inv]
 
 
 _erf_vec = np.vectorize(math.erf, otypes=[np.float64])

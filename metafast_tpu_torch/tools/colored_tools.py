@@ -109,7 +109,8 @@ class ColoredComponentTool(Tool):
         comps = col.split_colored(
             keys, vals, self.get("k"), n_groups=self.get("n_groups"),
             separate=self.get("separate"), linear=self.get("linear"),
-            n_comps=self.get("n_comps"), perc=self.get("perc"))
+            n_comps=self.get("n_comps"), perc=self.get("perc"),
+            device=self.device)
 
         out_dir = self.get("output-dir")
         out_dir.mkdir(parents=True, exist_ok=True)

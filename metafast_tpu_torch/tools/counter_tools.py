@@ -4,9 +4,8 @@ kmers-per-sample, kmers-multiple-filters.
 Counterpart of metafast_tpu/tools/counter_tools.py (:45-222); parity:
 src/tools/KmersSamplesCounter.java, KmersGroupedSamplesCounter.java,
 KmersPerSampleCounter.java, KmersMultipleFilters.java.  The presence
-counts and filter lookups run on ``ctx.device``; kmers-per-sample keeps
-the JAX package's streaming host structures (``stats.presence``, the
-port's copy).
+counts and filter lookups run on ``ctx.device``; kmers-per-sample takes
+the stats tools' device passes over its samples (``stats.presence``).
 """
 
 from __future__ import annotations
@@ -129,20 +128,20 @@ class KmersPerSampleCounterTool(Tool):
         k = self.get("k")
         check_k(k)
         files = self.get("k-mers")
-        tables = pres.load_sample_tables(files, 0)
+        tables = pres.LazyTables(files, 0, self.device)
         all_keys = pres.union_keys(tables)
         (n_present,) = pres.group_presence_counts(tables, all_keys,
                                                   [len(files)])
         thresh = len(files) * self.get("percent-present") // 100
-        sel = n_present >= thresh
-        keys = all_keys[sel]
+        keys = all_keys[n_present >= thresh]
 
         out_dir = self.get("output-dir")
         out_dir.mkdir(parents=True, exist_ok=True)
         out_file = out_dir / f"selected_kmers_{self.get('percent-present')}.txt"
-        counts = pres.count_matrix(tables, keys)
+        counts = host(pres.count_matrix(tables, keys))
         with open(out_file, "w") as fh:
-            fh.write("".join("\t" + s for s in kmers_strings(keys, k)) + "\n")
+            fh.write("".join("\t" + s for s in kmers_strings(host(keys), k))
+                     + "\n")
             for j, f in enumerate(files):
                 name = Path(f).name.replace(".kmers.bin", "")
                 fh.write(name

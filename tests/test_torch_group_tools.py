@@ -171,3 +171,33 @@ def test_group_tool_matches_jax(case, groups, tmp_path):
         rel, read, least = NON_EMPTY[case]
         assert len(read(str(tmp_path / "port" / rel))[0]) >= least
 
+
+
+@pytest.mark.parametrize("tool", ["stats-kmers", "stats-kmers-3"])
+def test_empty_sample_matches_jax(tool, tmp_path):
+    """Group A's first sample is empty (0 records), so its column of the
+    depth-normalised counts is NaN (0 * x / 0) in both packages: the
+    port's Mann-Whitney must rank NaN as the JAX package does, after
+    every number, and write the same files."""
+    groups = ["A"] * 4 + ["B"] * 4
+    if tool == "stats-kmers-3":
+        groups += ["C"] * 3
+    reads, _ = write_group_samples(tmp_path, groups, 12_000, 4_000, 2_500,
+                                   10, seed=5)
+    wd = _jax(["-t", "kmer-counter-many", "-k", str(K), "-i", *reads],
+              tmp_path / "count")
+    kb = [str(wd / "kmers" / f"{Path(r).stem}.kmers.bin") for r in reads]
+    binfmt.write_kmers_bin(kb[0], np.empty(0, np.int64),
+                           np.empty(0, np.int16))
+    args = ["-t", tool, "-A", *kb[:4], "-B", *kb[4:8]]
+    if tool == "stats-kmers-3":
+        args += ["-C", *kb[8:]]
+    _jax(args, tmp_path / "jax")
+    assert cli.main([*args, "-w", str(tmp_path / "port"),
+                     "--device", "cpu"]) == 0
+    assert_same_tree(tmp_path / "jax", tmp_path / "port")
+    # a NaN mean is above no other: the kept k-mers go to the last group
+    last = "kmers/filtered_group" + "ABC"[len(set(groups)) - 1]
+    keys, _ = binfmt.read_kmers_bin(str(tmp_path / "port" /
+                                        f"{last}.kmers.bin"))
+    assert len(keys) > 1000

@@ -22,6 +22,7 @@ from metafast_tpu_torch.graph import colored as col
 from metafast_tpu_torch.graph import pivot
 from metafast_tpu_torch.utils.kmers import sequence_kmers
 from metafast_tpu_torch.utils.native import native_library
+from torch_helpers import jax_neighbor_index
 
 K = 13
 
@@ -56,13 +57,13 @@ def _assert_same_components(got, want):
 @pytest.mark.parametrize("seed", [21, 22, 23])
 def test_graph_index_matches_jax(seed):
     """The port's _Graph tables (device searchsorted, on the CPU) equal
-    the JAX package's host index, and the native hash index."""
+    the JAX package's host index, and its native hash index."""
     keys, counts, _ = _table(seed)
     want = jax_pivot._Graph(keys, counts, K)
     got = pivot._Graph(keys, counts, K, "cpu")
     assert got.right == want.right and got.left == want.left
     assert got.counts_l == want.counts_l
-    left, right = pivot.native_neighbor_index(native_library(), keys, K)
+    left, right = jax_neighbor_index(keys, K)
     assert got.right == right.tolist() and got.left == left.tolist()
     assert sum(j >= 0 for row in got.right for j in row) > len(keys) // 2
 
@@ -90,14 +91,13 @@ def _index_table(kind: str, k: int):
 @pytest.mark.parametrize("k", [23, 31])
 def test_depth1_index_matches_native_hash(k, kind, monkeypatch):
     """The depth-1 route's int32 (left, right) tables, built in several
-    row blocks, equal the native hash's: a repeated key maps to the last
-    index of its run."""
+    row blocks, equal the JAX package's native hash's: a repeated key
+    maps to the last index of its run."""
     keys = _index_table(kind, k)
     monkeypatch.setattr(pivot, "_INDEX_BLOCK", 1_000)
     assert len(keys) > 2 * pivot._INDEX_BLOCK
     left, right = pivot.depth1_index(torch.from_numpy(keys), k)
-    want_left, want_right = pivot.native_neighbor_index(
-        native_library(), keys, k)
+    want_left, want_right = jax_neighbor_index(keys, k)
     assert left.dtype == right.dtype == np.int32
     assert np.array_equal(left, want_left)
     assert np.array_equal(right, want_right)
@@ -209,7 +209,7 @@ MODES = {"default": {}, "separate": {"separate": True},
 def test_split_colored_matches_jax(seed, mode):
     keys, values = _colored_table(seed)
     want = jax_col.split_colored(keys, values, K, **MODES[mode])
-    got = col.split_colored(keys, values, K, **MODES[mode])
+    got = col.split_colored(keys, values, K, **MODES[mode], device="cpu")
     assert sorted(got) == sorted(want) == [0, 1, 2]
     assert sum(len(v) for v in got.values()) > 0
     for c in want:
@@ -224,7 +224,7 @@ def test_colored_overflow_takes_the_python_spec(monkeypatch, caplog):
     want = jax_col.split_colored(keys, values, K)
     monkeypatch.setattr(native_library(), "colored_bfs", lambda *args: -1)
     with caplog.at_level(logging.WARNING, "metafast_torch.graph"):
-        got = col.split_colored(keys, values, K)
+        got = col.split_colored(keys, values, K, device="cpu")
     assert "members buffer overflow" in caplog.text
     for c in want:
         assert [(g.kmers.tolist(), g.weight) for g in got[c]] == [

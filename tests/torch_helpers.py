@@ -37,6 +37,27 @@ def check_kmer_counter_copies(directory, device):
         + n_bins * (counts.element_size() + 8))
 
 
+def jax_neighbor_index(keys, k):
+    """(left, right) [N, 4] int32 neighbour indices of a sorted key table
+    (-1 = absent) from the JAX package's native hash
+    (``build_neighbor_index``): a repeated key maps to the last index of
+    its run.  The oracle of the port's ``pivot.depth1_index``."""
+    import ctypes
+
+    from metafast_tpu.native import load_library
+
+    n = len(keys)
+    log2 = max(10, int(np.ceil(np.log2(max(n, 2)))) + 1)
+    left = np.empty((n, 4), dtype=np.int32)
+    right = np.empty((n, 4), dtype=np.int32)
+    keys = np.ascontiguousarray(keys, dtype=np.int64)
+    p32 = ctypes.POINTER(ctypes.c_int32)
+    assert load_library().build_neighbor_index(
+        keys.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), n, k, log2,
+        left.ctypes.data_as(p32), right.ctypes.data_as(p32)) == 0
+    return left, right
+
+
 @pytest.fixture
 def cuda_device():
     """The GPU, for tests marked ``cuda``; skips where there is none."""
