@@ -297,104 +297,118 @@ def connected_labels(nbr: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
     return star_connected_labels(nbr, active)
 
 
+def _group(keys: torch.Tensor, counts: torch.Tensor, active: torch.Tensor,
+           labels: torch.Tensor, thr: int, b1: int, b2: int):
+    """One level's grouping by label, where the table lies.
+
+    A row's group size is the number of active rows under its label.
+    Groups within [b1, b2] are emitted: their rows, ascending, stably
+    sorted by label, so each group's members ascend and its keys are
+    sorted.  The rows of larger groups with count >= thr + 1 are the next
+    level's.  Returns (the emitted member keys on the device, their
+    groups' sizes, weights and first keys as a [3, G] host int64 array,
+    the next level's active rows, their number)."""
+    M = keys.numel()
+    per_label = torch.zeros(M + 1, dtype=torch.int64, device=keys.device)
+    per_label.scatter_add_(0, labels, active.to(torch.int64))
+    size = torch.where(active, per_label[labels], 0)
+    nxt = (size >= b1) & (size > b2) & (counts >= thr + 1)
+    rows = torch.nonzero((size >= b1) & (size <= b2)).flatten()
+    lab, order = torch.sort(labels[rows], stable=True)
+    rows = rows[order]
+    _, sizes = torch.unique_consecutive(lab, return_counts=True)
+    ends = torch.cumsum(sizes, 0)
+    csum = torch.cat([ends.new_zeros(1),
+                      torch.cumsum(counts[rows], 0, dtype=torch.int64)])
+    small = torch.stack([sizes, csum[ends] - csum[ends - sizes],
+                         keys[rows[ends - sizes]]])
+    trace.d2h(small)
+    return keys[rows], small.cpu().numpy(), nxt, int(nxt.sum())
+
+
 def split_components(keys: torch.Tensor, counts: torch.Tensor, k: int,
                      b1: int, b2: int) -> list[Component]:
     """Size-window component splitting over a counted k-mer table.
 
     keys: [M] sorted canonical int64 keys; counts: [M] int32, on one
-    device.  Labels are computed on the device; the per-level bookkeeping
-    runs on the host.  A level is full-live at the first level and after
-    each compaction: large full-live levels take walk_connected_labels,
-    the others connected_labels.  With a default mesh of more than one
-    rank (api.set_default_mesh) every level takes the sharded star
+    device.  Every level runs there: the labels, and the grouping by
+    label (``_group``); the host reads a level's number of rows still
+    active and its emitted groups' sizes, weights and first keys.  A
+    level is full-live at the first level and after each compaction:
+    large full-live levels take walk_connected_labels, the others
+    connected_labels.  With a default mesh of more than one rank
+    (api.set_default_mesh) every level takes the sharded star
     contraction (parallel/components.py), as the JAX package (:573-579).
+    The returned components' kmers are views of their level's emitted
+    keys, on the device.
     """
     from .. import api
 
-    device = keys.device
     mesh = api.get_default_mesh()
     sharded = mesh is not None and mesh.size > 1
     if sharded:
         from ..parallel.components import sharded_connected_labels
-    with trace.span("components.to_host"):
-        trace.d2h(keys, counts)
-        keys64 = keys.cpu().numpy()
-        counts_all = counts.cpu().numpy().astype(np.int64)
-    M = len(keys64)
+    M = n_act = keys.numel()
     if M == 0:
         return []
-    active = np.ones(M, dtype=bool)
+    active = torch.ones(M, dtype=torch.bool, device=keys.device)
     tables = nbr = None
     full_live = True
     thr = 1
-    found = []      # (member keys, weight, threshold)
-    while active.any():
+    levels = []     # (member keys on the device, [3, G] host array, thr)
+    while n_act:
         with trace.span("components.level"):
             # below 1/4 occupancy, continue on the compacted sub-table:
             # the label rounds cost O(table size), and membership is by
             # key value, so compaction cannot change a component
-            n_act = int(active.sum())
             if n_act * 4 <= M and M > 16:
                 with trace.span("components.bookkeeping"):
-                    sel = np.nonzero(active)[0]
-                    keys64, counts_all = keys64[sel], counts_all[sel]
-                    M = len(keys64)
-                    active = np.ones(M, dtype=bool)
+                    sel = torch.nonzero(active).flatten()
+                    keys, counts = keys[sel], counts[sel]
+                    M = n_act
+                    active = torch.ones(M, dtype=torch.bool,
+                                        device=keys.device)
                 tables = nbr = None
                 full_live = True
             with trace.span("components.labels"):
                 if tables is None:
-                    trace.h2d(device, keys64)
-                    keys_dev = torch.from_numpy(keys64).to(device)
-                    tables = dbg.neighbor_tables(keys_dev, k)
+                    tables = dbg.neighbor_tables(keys, k)
                 if full_live and not sharded and M >= _WALK_MIN:
-                    labels = walk_connected_labels(keys_dev, k, tables)
+                    labels = walk_connected_labels(keys, k, tables)
                 else:
                     if nbr is None:
                         nbr = _adjacency(tables)
-                    trace.h2d(device, active)
-                    active_dev = torch.from_numpy(active).to(device)
                     if sharded:
-                        labels = sharded_connected_labels(nbr, active_dev,
-                                                          mesh)
+                        labels = sharded_connected_labels(nbr, active, mesh)
                     else:
-                        labels = connected_labels(nbr, active_dev)
-                trace.d2h(labels)
-                labels = labels.cpu().numpy()
+                        labels = connected_labels(nbr, active)
             with trace.span("components.bookkeeping"):
+                trace.count("components_grouped_keys", n_act)
                 full_live = False
-                act_idx = np.nonzero(active)[0]
-                roots = labels[act_idx]
-                order = np.argsort(roots, kind="stable")
-                act_sorted = act_idx[order]
-                roots_sorted = roots[order]
-                starts = np.nonzero(np.r_[True, roots_sorted[1:]
-                                          != roots_sorted[:-1]])[0]
-                ends = np.r_[starts[1:], len(roots_sorted)]
-                sizes = ends - starts
-
-                next_active = np.zeros(M, dtype=bool)
-                for s, e in zip(starts[sizes >= b1], ends[sizes >= b1]):
-                    # act_idx ascends and the sort is stable: members
-                    # ascend, so their keys are sorted
-                    members = act_sorted[s:e]
-                    if e - s <= b2:
-                        found.append((keys64[members],
-                                      int(counts_all[members].sum()), thr))
-                    else:
-                        keep = members[counts_all[members] >= thr + 1]
-                        next_active[keep] = True
-                active = next_active
+                members, small, active, n_act = _group(
+                    keys, counts, active, labels, thr, b1, b2)
+                if small.shape[1]:
+                    levels.append((members, small, thr))
                 thr += 1
         if thr > 32768:
             break
 
-    found.sort(key=lambda c: (c[2], -c[1], -len(c[0]), int(c[0][0])))
-    if not found:
+    if not levels:
         return []
-    sizes = [len(c[0]) for c in found]
-    kmers = np.concatenate([c[0] for c in found])
-    trace.h2d(device, kmers)
-    kmers = torch.from_numpy(kmers).to(device)
-    return [Component(kmers=km, weight=w, used_freq_threshold=t)
-            for km, (_, w, t) in zip(torch.split(kmers, sizes), found)]
+    kmers = [km for m, s, _ in levels for km in torch.split(m, s[0].tolist())]
+    size, weight, first = np.concatenate([s for _, s, _ in levels], axis=1)
+    thrs = np.concatenate([np.full(s.shape[1], t) for _, s, t in levels])
+    return [Component(kmers=kmers[i], weight=int(weight[i]),
+                      used_freq_threshold=int(thrs[i]))
+            for i in np.lexsort((first, -size, -weight, thrs))]
+
+
+def members_to_host(comps: list[Component]) -> list[np.ndarray]:
+    """Each component's member keys on the host, from one copy back of
+    all of them."""
+    if not comps:
+        return []
+    flat = torch.cat([c.kmers for c in comps])
+    trace.d2h(flat)
+    return np.split(flat.cpu().numpy(),
+                    np.cumsum([c.size for c in comps])[:-1])

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .core.bitpack import SENTINEL
+from .graph.components import members_to_host
 from .utils.device import resolve_device
 
 
@@ -54,6 +55,6 @@ class HostComponent:
 
 def components_to_numpy(components) -> list[HostComponent]:
     """The port's components (device kmer tensors) as host components."""
-    return [HostComponent(kmers=c.kmers.cpu().numpy(), weight=int(c.weight),
+    return [HostComponent(kmers=km, weight=int(c.weight),
                           used_freq_threshold=int(c.used_freq_threshold))
-            for c in components]
+            for km, c in zip(members_to_host(components), components)]

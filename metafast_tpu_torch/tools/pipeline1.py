@@ -270,7 +270,8 @@ class ComponentCutterTool(Tool):
         out = self.get("components-file")
         out.parent.mkdir(parents=True, exist_ok=True)
         with trace.span("components.to_host"):
-            members = [(host(c.kmers), c.weight) for c in comps]
+            members = list(zip(comp_mod.members_to_host(comps),
+                               (c.weight for c in comps)))
         with trace.span("write.components", out):
             binfmt.write_components_bin(str(out), members)
         stat_fp = self.workdir / (

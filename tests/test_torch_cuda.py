@@ -28,6 +28,7 @@ from metafast_tpu_torch.pipeline import matrix_pipeline
 from metafast_tpu_torch.utils.kmers import sequence_kmers
 from torch_helpers import check_kmer_counter_copies, cuda_device  # noqa: F401
 from torch_helpers import workdir_tree
+from torch_helpers import PATH_CASES, path_table
 from torch_helpers import write_group_samples, write_samples
 
 pytestmark = pytest.mark.cuda
@@ -415,6 +416,37 @@ def test_labels_on_gpu_match_cpu(tmp_path, cuda_device):
     assert torch.equal(comp.star_connected_labels(
         nbr.to(cuda_device), active.to(cuda_device)).cpu(), star)
     assert torch.equal(comp.walk_connected_labels(gkeys, 31).cpu(), walk)
+
+
+@pytest.mark.parametrize("walk_min", [0, None])
+def test_split_components_on_gpu_match_cpu(walk_min, tmp_path, cuda_device,
+                                           monkeypatch):
+    """split_components on the card gives the CPU's components, weights
+    and thresholds in the CPU's order: on two 200 kbp samples' recount
+    graph (~3 x 10^5 keys, components at thresholds 1-14) and on every
+    path table of torch_helpers.PATH_CASES; with ``walk_min`` 0 the
+    full-live levels take the walk labeller."""
+    from metafast_tpu_torch import api
+    from metafast_tpu_torch.graph import components as comp
+
+    if walk_min is not None:
+        monkeypatch.setattr(comp, "_WALK_MIN", walk_min)
+    files = write_samples(tmp_path, 2, 200_000, 80_000, 12, seed=8)
+    keys, counts, _ = api.count_reads_files(files, 31, torch.device("cpu"))
+    keep = counts > 1
+    tables = [(keys[keep], counts[keep], 100, 3000)] + [
+        (*map(torch.from_numpy, path_table(paths)), b1, b2)
+        for b1, b2, paths in PATH_CASES.values()]
+    for keys, counts, b1, b2 in tables:
+        cpu = comp.split_components(keys, counts, 31, b1, b2)
+        gpu = comp.split_components(keys.to(cuda_device),
+                                    counts.to(cuda_device), 31, b1, b2)
+        assert len(gpu) == len(cpu) >= 3
+        assert [(c.weight, c.used_freq_threshold) for c in gpu] == [
+            (c.weight, c.used_freq_threshold) for c in cpu]
+        assert all(c.kmers.device.type == cuda_device.type for c in gpu)
+        for g, c in zip(comp.members_to_host(gpu), cpu):
+            assert np.array_equal(g, c.kmers.numpy())
 
 
 @pytest.mark.parametrize("n", [0, 200_000])

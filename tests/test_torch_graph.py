@@ -18,6 +18,7 @@ from metafast_tpu_torch.graph import contigs as tcontigs
 from metafast_tpu_torch.graph import dbg as tdbg
 from metafast_tpu_torch.state import (components_to_numpy, join_pairs,
                                       table_from_jax)
+from torch_helpers import PATH_CASES, path_table
 from torch_helpers import counted_table as _table
 
 def _pairs(keys):
@@ -84,6 +85,47 @@ def test_split_components_match_jax(k, b1, b2):
         assert np.array_equal(g.kmers, w.kmers)
         assert (g.weight, g.used_freq_threshold) == (
             w.weight, w.used_freq_threshold)
+
+
+@pytest.mark.parametrize("case", sorted(PATH_CASES))
+def test_split_components_cases_match_jax(case, monkeypatch):
+    """The device grouping on tables of disjoint paths (torch_helpers.
+    PATH_CASES): groups of exactly b1 and b2 keys, a component that
+    climbs thresholds until it fits and one until it empties, ties that
+    only the smallest member key orders, levels that compact and that do
+    not; the components equal the JAX package's, field by field in
+    order."""
+    b1, b2, paths = PATH_CASES[case]
+    keys, counts = path_table(paths, seed=len(case))
+    tables = []
+    neighbor_tables = tdbg.neighbor_tables
+
+    def spy(keys, k):
+        tables.append(keys.numel())
+        return neighbor_tables(keys, k)
+
+    monkeypatch.setattr(tdbg, "neighbor_tables", spy)
+    got = components_to_numpy(tcomp.split_components(
+        *table_from_jax(keys, counts, "cpu"), 31, b1, b2))
+    want = jcomp.split_components(keys, counts, 31, b1, b2)
+    assert len(got) == len(want) >= 3
+    for g, w in zip(got, want):
+        assert np.array_equal(g.kmers, w.kmers)
+        assert (g.weight, g.used_freq_threshold) == (
+            w.weight, w.used_freq_threshold)
+    # one neighbour table a compaction: level 2 of the climb beside 40
+    # paths keeps 220 of 1220 rows
+    assert tables == ([1220, 220] if case == "climb_compacts"
+                      else [len(keys)])
+    order = [(c.used_freq_threshold, -c.weight, -c.size) for c in got]
+    if case == "window_edges":
+        assert {(b1, 1), (b2, 1), (b2, 2), (b1, 2)} <= {
+            (c.size, c.used_freq_threshold) for c in got}
+    elif case.startswith("climb"):
+        assert max(c.used_freq_threshold for c in got) == 4
+    else:
+        assert len(set(order)) < len(order)
+    assert order == sorted(order)
 
 
 def test_connected_labels_fixed_point():

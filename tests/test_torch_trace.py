@@ -11,11 +11,13 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 from torch_helpers import cuda_device  # noqa: F401
-from torch_helpers import (assert_same_tree, check_kmer_counter_copies,
+from torch_helpers import (PATH_CASES, assert_same_tree,
+                           check_kmer_counter_copies, path_table,
                            write_group_samples, write_samples)
 
 from metafast_tpu_torch import api as tapi
 from metafast_tpu_torch import cli
+from metafast_tpu_torch.graph import components as comp
 from metafast_tpu_torch.graph import pivot
 from metafast_tpu_torch.tools import framework as fw
 from metafast_tpu_torch.utils import trace
@@ -301,5 +303,46 @@ def test_traced_depth1_extraction_counts_its_index(on_card, request):
     if on_card:
         assert got["d2h_bytes"] == 2 * 4 * 4 * len(keys)
         assert got["h2d_bytes"] == 8 * len(keys)
+    else:
+        assert got.get("d2h_bytes", 0) == got.get("h2d_bytes", 0) == 0
+
+
+@pytest.mark.parametrize("case,on_card", [
+    ("climb_compacts", False), ("empty", False),
+    pytest.param("climb_compacts", True, marks=pytest.mark.cuda)])
+def test_traced_split_components_counts_its_grouped_rows(case, on_card,
+                                                         request, monkeypatch):
+    """A traced split_components counts the rows it grouped on the device,
+    the sum of the active rows over its levels (0 without a level); on
+    the card it copies back only the emitted groups' sizes, weights and
+    first keys, and uploads nothing."""
+    device = (request.getfixturevalue("cuda_device") if on_card
+              else torch.device("cpu"))
+    b1, b2, paths = PATH_CASES["climb_compacts"]
+    keys, counts = path_table(paths) if case != "empty" else (
+        np.empty(0, np.int64), np.empty(0, np.int32))
+    active_rows = []
+    labels = comp.connected_labels
+
+    def spy(nbr, active):
+        active_rows.append(int(active.sum()))
+        return labels(nbr, active)
+
+    monkeypatch.setattr(comp, "connected_labels", spy)
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        comps = comp.split_components(torch.from_numpy(keys).to(device),
+                                      torch.from_numpy(counts).to(device),
+                                      31, b1, b2)
+    got = trace.counters()
+    trace.reset()
+    assert got.get("components_grouped_keys", 0) == sum(active_rows)
+    # the climb's levels: the table, then its two oversized paths at
+    # thresholds 2 and 3, then the climbing path's count-4 k-mers
+    assert active_rows == ([] if case == "empty" else [1220, 220, 218, 115])
+    assert len(comps) == (0 if case == "empty" else 46)
+    if on_card:
+        assert got["d2h_bytes"] == 3 * 8 * len(comps)
+        assert "h2d_bytes" not in got
     else:
         assert got.get("d2h_bytes", 0) == got.get("h2d_bytes", 0) == 0

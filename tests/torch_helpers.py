@@ -147,6 +147,62 @@ def counted_table(k, seed, genome_len=6000, cov=10, read_len=90,
     return keys[keep], counts[keep]
 
 
+def _path(n, count, **dips):
+    """Counts along a path of n k-mers: ``count``, and at each position
+    ``p<i>=c`` the count c."""
+    out = np.full(n, count, np.int32)
+    for pos, c in dips.items():
+        out[int(pos[1:])] = c
+    return out
+
+
+# Tables of disjoint linear paths, each one component at threshold 1,
+# for split_components: (b1, b2, the paths' counts).  A path's k-mers
+# below a threshold cut it into pieces at the next level.
+_CLIMB = [
+    # 120 k-mers: 120 at thr 1 and 2, pieces 40 / 39 / 39 at thr 3,
+    # 20 / 19 x 5 within [10, 30] at thr 4
+    _path(120, 4, p40=2, p80=2, p20=3, p60=3, p100=3),
+    # oversized at thr 1-3, then no k-mer of count 4: it empties
+    _path(100, 3),
+]
+PATH_CASES = {
+    # groups of exactly b1 and b2 keys, at thr 1 and (the pieces of
+    # two paths of 51) at thr 2; sizes b1 - 1 and b2 + 1 next to them
+    "window_edges": (20, 50, [_path(19, 1), _path(20, 1), _path(35, 2),
+                              _path(50, 3), _path(51, 1),
+                              _path(51, 2, p0=1), _path(51, 2, p20=1)]),
+    # the climb beside 40 paths within the window: level 2 holds 220 of
+    # 1220 rows and compacts
+    "climb_compacts": (10, 30, _CLIMB + [_path(25, 1 + i % 3)
+                                         for i in range(40)]),
+    # the same climb beside 2 paths: no level compacts
+    "climb_in_place": (10, 30, _CLIMB + [_path(25, 1), _path(15, 2)]),
+    # equal thresholds, weights and sizes, ordered by the smallest key
+    # alone (four paths of 25 x 2, two pieces of 35 x 2 at thr 2); equal
+    # weights ordered by size (50 x 1, 10 x 5)
+    "ties": (10, 60, [_path(25, 2) for _ in range(4)]
+             + [_path(50, 1), _path(10, 5), _path(71, 2, p35=1)]),
+}
+
+
+def path_table(paths, k=31, seed=0):
+    """(keys ascending, counts int32) of disjoint random paths with the
+    given counts along each (a random sequence of len(c) + k - 1 bases a
+    path: its k-mers are distinct and join no other path's)."""
+    from metafast_tpu_torch.utils.kmers import sequence_kmers
+
+    rng = np.random.default_rng(seed)
+    keys = np.concatenate([sequence_kmers(
+        "".join("ACGT"[b] for b in rng.integers(0, 4, len(c) + k - 1)), k)
+        for c in paths])
+    counts = np.concatenate(paths)
+    order = np.argsort(keys)
+    keys, counts = keys[order], counts[order]
+    assert (np.diff(keys) > 0).all()
+    return keys, counts
+
+
 _TS = re.compile(rb"\d{4}-\d{2}-\d{2}_\d{2}-\d{2}-\d{2}")
 
 
